@@ -29,6 +29,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "chaos: deterministic fault-injection / failover recovery suite")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the port's CUDA kernels)")
 
 
 @pytest.fixture(scope="session")
