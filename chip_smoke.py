@@ -11,7 +11,9 @@ and the script exits non-zero:
    inputs: phash over 1,048,576 keys, phash_chain at N=4096, D=16,
    pkval against a 2^23-slot index with ~1M live entries, tombstones and
    AMBIG buckets (65,536 probes, padding parents included), hintchain over
-   client and fallback tables at N=4096, D=16.  Times are CUDA-event
+   client and fallback tables at N=4096, D=16, treeagg over 1,048,576
+   inode slots (runs of children, other parents, cleared slots, sums that
+   wrap) against a wave of 4,096 directories.  Times are CUDA-event
    medians of 20 launches after warm-up.
 3. The main path at deployment size: a columnar store on the card with 4
    datanodes and 4 namenodes, the Spotify-shaped namespace (127
@@ -19,13 +21,21 @@ and the script exits non-zero:
    directory of ``--bulk`` file inodes (the inode hash index, 2^23 slots at
    1M entries, lives on the card), then a ``--ops`` Spotify trace through
    ``DFSClient.run_trace(planned=True, batch_size=64, window=1024,
-   adaptive=False)`` and a ``DFSClient.batch()`` of 1,024 stats served
-   from the namenode's hint cache.  The launch counts are set to 0 just
-   before and read just after: each of the four kernels must have run.
+   adaptive=False)`` (its subtree deletes expand their waves with
+   treeagg over the inode columns on the card), a ``du`` of the whole
+   namespace (a treeagg launch per wave) and a ``DFSClient.batch()`` of
+   1,024 stats served from the namenode's hint cache.  The launch counts
+   are set to 0 just before and read just after: each of the five
+   kernels must have run.
    Each kernel's first main-path call is recorded and replayed against the
    plain version: those shapes give the JSON line's times and bounds.
-4. Oracle: the same build, trace and batch on the dict ``MetadataStore``
-   (on the card too); final state and every outcome must be equal.
+4. Checks: the same build, trace, du and batch on the host (plain
+   versions) must end byte-equal to the card's run, in state, outcomes,
+   OpCost and counts.  Then the oracle, the dict ``MetadataStore``: every
+   outcome must be equal, and every table's rows, with inode and block ids
+   replaced by paths and the namenodes' atime/mtime clocks left out
+   (``canonical_state``); byte-equal, ids and all, when pkval demoted no
+   chain.
 
 The line before the last is the kernels' JSON, the last line the device
 JSON.  Without a CUDA device, or outside the repository, it exits non-zero
@@ -45,16 +55,18 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-#: H100 SXM data sheet: HBM3 rate, and the 32-bit rate outside the tensor
-#: cores (the guide's table has no integer entry; its fp32 rate is used)
+#: H100 SXM: the data sheet's HBM3 rate, and the INT32 issue rate, 132 SMs x
+#: 64 INT32 lanes x 1.98 GHz boost (the data sheet gives no integer rate
+#: outside the tensor cores; the kernels' work is all 32-bit integer)
 BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+OPS_PER_S = 132 * 64 * 1.98e9
 SOURCE = "src/repro_torch/kernels/csrc/metadata_kernels.cu"
 REPLACES = {
     "phash": "src/repro/kernels/phash/kernel.py:35",
     "phash_chain": "src/repro/kernels/phash/kernel.py:83",
     "pkval": "src/repro/kernels/pkval/kernel.py:76",
     "hintchain": "src/repro/kernels/hintchain/kernel.py:101",
+    "treeagg": "src/repro/kernels/treeagg/kernel.py:83",
 }
 
 
@@ -195,6 +207,20 @@ def work_hintchain(cp, cn, cv, fp, fn, fv, names, depths, root_id=1, **_):
                  6 * probed + 4 * steps)
 
 
+def work_treeagg(wave, par, isdir, size):
+    """Every slot's parent read and seg written; is_dir and size read for
+    the children found; the wave read and three sums per member written.
+    Operations: a compare and a halving per search step of each live slot
+    and three adds per child."""
+    w, c = wave.numel(), par.numel()
+    seg = torch.searchsorted(wave, par)
+    hits = int(((par >= 0) & (seg < w) & (wave[seg.clamp(max=max(w - 1, 0))]
+                                          == par)).sum()) if w else 0
+    live = int((par >= 0).sum())
+    return bound(4 * w + 4 * c + 8 * hits + 4 * c + 12 * w,
+                 live * 3 * max(1, w.bit_length()) + 3 * hits)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: synthetic inputs
 # ---------------------------------------------------------------------------
@@ -267,10 +293,25 @@ def synthetic_hint_tables(rng, n_ops: int, depth: int = 16):
     return client, fallback, names, depths
 
 
+def synthetic_slots(rng, c: int, w: int):
+    """An inode table of c slots and a sorted wave of w directory ids:
+    runs of children of wave members (as bulk loads lay them out), other
+    parents, cleared slots; sizes large enough for the sums to wrap."""
+    wave = np.sort(rng.choice(np.arange(2, 64 * w), size=w, replace=False))
+    par = np.repeat(wave, c // w + 1)[:c]
+    other = rng.random(c) < 0.3
+    par[other] = rng.integers(2, 64 * w, size=int(other.sum()))
+    par[rng.random(c) < 0.05] = -1
+    isdir = (rng.random(c) < 0.1) & (par >= 0)
+    size = np.where(par >= 0, rng.integers(0, 1 << 31, size=c), 0)
+    return wave, par, isdir, size
+
+
 def phase_kernels(seed: int, dev) -> None:
     from repro_torch.kernels.hintchain import kernel as hk, ref as hr
     from repro_torch.kernels.phash import kernel as pk, ref as pr
     from repro_torch.kernels.pkval import kernel as vk, ref as vr
+    from repro_torch.kernels.treeagg import kernel as tk, ref as tr
     rng = np.random.default_rng(seed)
     cases = {}
     keys = i32(rng.integers(0, 1 << 32, size=1 << 20), dev)
@@ -298,6 +339,9 @@ def phase_kernels(seed: int, dev) -> None:
     cases["hintchain"] = (hk.hintchain, hr.hintchain_ref,
                           tabs + (i32(hnames, dev), i32(hdep, dev)),
                           {"root_id": 1}, work_hintchain)
+    slots = synthetic_slots(rng, 1 << 20, 4096)
+    cases["treeagg"] = (tk.treeagg, tr.treeagg_ref,
+                        tuple(i32(a, dev) for a in slots), {}, work_treeagg)
     for name, (kern, plain, args, kw, work) in cases.items():
         got, want = kern(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
@@ -326,19 +370,23 @@ class Recorder:
     to the card, launch, results back) and in the index mirror's refresh."""
 
     def __init__(self):
-        from repro_torch.core.columnar import HashIndex
+        from repro_torch.core.columnar import ColumnarTable, HashIndex
         from repro_torch.kernels.hintchain import kernel as hk, ops as ho
         from repro_torch.kernels.phash import kernel as pk, ops as po
         from repro_torch.kernels.pkval import kernel as vk, ops as vo
+        from repro_torch.kernels.treeagg import kernel as tk, ops as to
         self.calls = {}
         self.host_s = {}
         self._orig = []
         for mod, name in ((pk, "phash"), (pk, "phash_chain"),
-                          (vk, "pkval"), (hk, "hintchain")):
+                          (vk, "pkval"), (hk, "hintchain"),
+                          (tk, "treeagg")):
             self._patch(mod, name, self._record)
         for mod, name in ((po, "phash_partitions"), (po, "phash_chains"),
                           (vo, "pkval_lookup"), (ho, "hintchain_resolve"),
-                          (HashIndex, "device_arrays")):
+                          (to, "treeagg_expand"),
+                          (HashIndex, "device_arrays"),
+                          (ColumnarTable, "device_columns")):
             self._patch(mod, name, self._time)
 
     def _patch(self, owner, name, wrap):
@@ -385,7 +433,8 @@ def build(columnar: bool, bulk: int, dev):
 
 
 def drive(columnar: bool, bulk: int, n_ops: int, dev, on_start=None):
-    """Build, replay the trace, then the client batch; returns results."""
+    """Build, replay the trace, du the namespace, then the client batch;
+    returns results."""
     import repro_torch.core as T
     from repro_torch.core.workload import make_spotify_trace
     t0 = time.perf_counter()
@@ -411,6 +460,9 @@ def drive(columnar: bool, bulk: int, n_ops: int, dev, on_start=None):
     finally:
         T.PlannedRequestPipeline.run = real_run
     t_trace = time.perf_counter() - t1
+    t3 = time.perf_counter()
+    du = client.call("du", "/")
+    t_du = time.perf_counter() - t3
     # 1,024 distinct files: the namespace's files the trace left alive,
     # then bulk files; the first pass warms the namenode's hint cache
     paths = [p for p in ns.files if client.exists(p)][:1024]
@@ -431,27 +483,73 @@ def drive(columnar: bool, bulk: int, n_ops: int, dev, on_start=None):
         "windows", "kernel_launches", "hintchain_launches",
         "pkval_launches", "pkval_probes", "pkval_demotions")}
     for k in ("pkval_launches", "pkval_probes", "pkval_demotions",
-              "batched_ops"):
+              "batched_ops", "treeagg_launches"):
         counts["nn_" + k] = sum(getattr(nn, k) for nn in nns)
-    return dict(store=store, stats=stats, runs=runs, paths=paths,
+    counts["nn_treeagg_mismatches"] = sum(nn.subtree.treeagg_mismatches
+                                          for nn in nns)
+    return dict(store=store, stats=stats, runs=runs, paths=paths, du=du,
                 counts=counts, t_build=t_build, t_trace=t_trace,
-                t_batch=t_batch)
+                t_du=t_du, t_batch=t_batch)
 
 
 def outcomes(r, physical: bool = True):
-    """Per-op (ok, error, value) and the batch's stats; without the
-    physical identifiers (inode ids, per-namenode mtime clocks) when
-    ``physical`` is False."""
+    """Per-op (ok, error, value), the du's value and the batch's stats;
+    without the physical identifiers (inode ids, per-namenode mtime
+    clocks) when ``physical`` is False."""
     if physical:
         ops = [(o.ok, o.error, None if o.result is None else o.result.value)
                for o in r["stats"].outcomes]
         stats = [[(s.path, s.inode_id, s.is_dir, s.perm, s.owner, s.size,
                    s.repl, s.mtime) for s in run] for run in r["runs"]]
+        du = (r["du"].value, r["du"].cost.as_dict())
     else:
         ops = [(o.ok, o.error) for o in r["stats"].outcomes]
         stats = [[(s.path, s.is_dir, s.perm, s.owner, s.size, s.repl)
                   for s in run] for run in r["runs"]]
-    return ops, stats
+        du = r["du"].value
+    return ops, du, stats
+
+
+def canonical_state(store):
+    """Every table's rows (``id_seq``, the id allocators' positions, left
+    out) with inode ids replaced by paths, block ids by (file path, block
+    index), and the namenodes' own atime/mtime clocks left out: what two
+    runs must share when the same ops ran on other namenodes, which draw
+    other ids and stamp other times."""
+    by_id = {r["id"]: r for part in store.table("inode").parts
+             for r in part.values()}
+    paths = {1: ""}                            # the root inode
+
+    def path(iid):
+        chain = []
+        while iid not in paths:
+            row = by_id.get(iid)
+            if row is None or len(chain) > len(by_id):
+                return ("no inode", iid)
+            chain.append(row)
+            iid = row["parent_id"]
+        p = paths[iid]
+        for row in reversed(chain):
+            p = paths[row["id"]] = p + "/" + row["name"]
+        return p
+
+    blocks = {r["block_id"]: (path(r["inode_id"]), r["index"])
+              for part in store.table("block").parts for r in part.values()}
+    out = {}
+    for name, t in store.tables.items():
+        if name == "id_seq":
+            continue
+        rows = []
+        for part in t.parts:
+            for row in part.values():
+                rows.append(tuple(
+                    (k, path(v) if k in ("id", "parent_id", "inode_id")
+                     else blocks.get(v, ("no block", v))
+                     if k == "block_id" else v)
+                    for k, v in sorted(row.items())
+                    if k not in ("atime", "mtime")))
+        out[name] = sorted(rows, key=repr)
+    return out
 
 
 def main() -> int:
@@ -503,12 +601,14 @@ def main() -> int:
         f"batches={st.n_batches} build_s={col['t_build']:.3f} "
         f"trace_s={col['t_trace']:.3f} batch_s={col['t_batch']:.3f} "
         f"batch_stats={len(col['paths'])}x2")
+    log(f"phase3 du /: {json.dumps(col['du'].value)} "
+        f"round_trips={col['du'].cost.round_trips} du_s={col['t_du']:.3f}")
     log(f"phase3 counts: {json.dumps(counts)}")
-    wall = col["t_trace"] + col["t_batch"]
+    wall = col["t_trace"] + col["t_du"] + col["t_batch"]
     in_kernels = sum(t for _, t in rec.host_s.values())
     log("phase3 host time in kernel wrappers: " + ", ".join(
         f"{k} {n} calls {t:.4f} s" for k, (n, t) in rec.host_s.items())
-        + f"; {in_kernels:.4f} s of {wall:.3f} s trace+batch wall "
+        + f"; {in_kernels:.4f} s of {wall:.3f} s trace+du+batch wall "
         f"({100 * in_kernels / wall:.2f}%)")
     log(f"phase3 launches: {json.dumps(launches)} peak_device_bytes="
         f"{torch.cuda.max_memory_allocated()}")
@@ -520,11 +620,13 @@ def main() -> int:
     from repro_torch.kernels.hintchain import kernel as hk, ref as hr
     from repro_torch.kernels.phash import kernel as pk, ref as pr
     from repro_torch.kernels.pkval import kernel as vk, ref as vr
+    from repro_torch.kernels.treeagg import kernel as tk, ref as tr
     pairs = {"phash": (pk.phash, pr.phash_ref, work_phash),
              "phash_chain": (pk.phash_chain, pr.phash_chain_ref,
                              work_phash_chain),
              "pkval": (vk.pkval, vr.pkval_ref, work_pkval),
-             "hintchain": (hk.hintchain, hr.hintchain_ref, work_hintchain)}
+             "hintchain": (hk.hintchain, hr.hintchain_ref, work_hintchain),
+             "treeagg": (tk.treeagg, tr.treeagg_ref, work_treeagg)}
     rows = []
     for name, (kern, plain, work) in pairs.items():
         a, kw = rec.calls[name]
@@ -558,28 +660,31 @@ def main() -> int:
             or host["stats"].total_cost.as_dict() != st.total_cost.as_dict():
         raise AssertionError("card outcomes or counts != host run's")
     log(f"phase4 host: columnar store on the CPU (plain versions): state, "
-        f"{len(st.outcomes)} outcomes, OpCost and counts equal; "
+        f"{len(st.outcomes)} outcomes, du, OpCost and counts equal; "
         f"trace_s={host['t_trace']:.3f}")
     del host
     # the dict store, the oracle: no index, so no pkval demotions; a
-    # demoted op rides the sequential path on another namenode, which
-    # draws other inode ids, so with demotions only the logical state
-    # (namespace_snapshot) and the outcomes without ids must agree
-    from repro_torch.core import namespace_snapshot
+    # demoted op rides the sequential path, maybe on another namenode,
+    # which draws other inode and block ids and stamps other times: with
+    # demotions the state must agree without those (canonical_state)
     oracle = drive(False, args.bulk, args.ops, dev)
-    if namespace_snapshot(col["store"]) != \
-            namespace_snapshot(oracle["store"]):
-        raise AssertionError("columnar namespace != dict store namespace")
     if outcomes(col, physical=False) != outcomes(oracle, physical=False):
         raise AssertionError("columnar outcomes != dict store outcomes")
+    canon = canonical_state(col["store"])
+    differ = [k for k, v in canonical_state(oracle["store"]).items()
+              if canon.get(k) != v]
+    if differ:
+        raise AssertionError(f"columnar tables {differ} != dict store's")
     demoted = counts["pkval_demotions"] + counts["nn_pkval_demotions"]
     bytes_equal = col["store"].dump_state() == oracle["store"].dump_state()
     if not demoted and not bytes_equal:
         raise AssertionError("no demotions, yet columnar state != dict")
-    log(f"phase4 oracle: dict store namespace and {len(st.outcomes)} "
-        f"outcomes + {2 * len(col['paths'])} batch stats equal; "
-        f"dump_state byte-equal={bytes_equal} with {demoted} demotions; "
-        f"dict trace_s={oracle['t_trace']:.3f}")
+    log(f"phase4 oracle: dict store's {len(canon)} tables "
+        f"({sum(map(len, canon.values()))} rows) equal up to ids and "
+        f"clocks, {len(st.outcomes)} outcomes + du + "
+        f"{2 * len(col['paths'])} batch stats equal; dump_state "
+        f"byte-equal={bytes_equal} with {demoted} demotions; "
+        f"dict trace_s={oracle['t_trace']:.3f} du_s={oracle['t_du']:.3f}")
     log(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

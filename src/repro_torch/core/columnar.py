@@ -18,15 +18,21 @@ the CUDA kernels read:
 * ``repro_torch.kernels.hintchain`` — vectorized hint-chain resolution:
   ONE launch walks every op's cached parent chain against snapshots of the
   client + namenode hint caches, replacing the per-probe Python loop in
-  ``lower_trace``.
+  ``lower_trace``;
+* ``repro_torch.kernels.treeagg`` — subtree wave expansion: ONE launch
+  over the inode table's hot columns (mirrored on the device as well)
+  resolves a whole BFS wave's children and their count/dir/size sums, for
+  the subtree protocol's phase 2 and for ``du``.
 
-Both kernels are ADVISORY: their output only picks which ops ride the
-batched fast path vs the exact sequential path, and every shipped hint is
-still validated against real rows inside the server transaction.  The
-dict store therefore remains the always-on oracle: ``dump_state`` is
-byte-equal between the two backends.  Which implementation runs depends
-only on the store's device — the kernel on CUDA, the plain PyTorch version
-on the CPU — and a kernel error is raised, never hidden.
+pkval and hintchain are ADVISORY: their output only picks which ops ride
+the batched fast path vs the exact sequential path, and every shipped hint
+is still validated against real rows inside the server transaction.  The
+dict store therefore remains the always-on oracle: outcomes and the
+logical namespace always agree with it, and ``dump_state`` is byte-equal
+while pkval demotes no chain (a demoted op may run on another namenode,
+which draws other ids).  Which implementation runs depends only on the
+store's device — the kernel on CUDA, the plain PyTorch version on the CPU
+— and a kernel error is raised, never hidden.
 
 Sentinel encoding shared by the host index and both kernels::
 
@@ -67,6 +73,9 @@ _GOLDEN2 = 0x85EBCA6B
 #: decides demotions, so equal gates keep every count equal)
 PKVAL_MIN_BATCH = 128
 HINTCHAIN_MIN_BATCH = 128
+#: treeagg gates on the inode table's SLOT count (the kernel sweeps every
+#: slot per launch), so tiny namespaces stay on the Python path entirely
+TREEAGG_MIN_BATCH = 128
 
 _MISSING = object()          # column sentinel: row has no such key
 
@@ -293,7 +302,9 @@ class ColumnarTable:
     The inode table additionally maintains :attr:`hindex`, the
     open-addressing ``(parent_id, crc32(name)) -> id`` index the pkval
     kernel probes; crc-collided buckets are tracked per key and poisoned
-    with ``AMBIG``.
+    with ``AMBIG``.  Its hot columns have a device mirror for the treeagg
+    kernel (:meth:`device_columns`), kept like the index's: slots written
+    since the last use are copied over, the whole mirror after a growth.
 
     Interface parity with ``Table`` (schema/n_partitions/parts/idx/
     n_rows/_pk_loc/partition_of/partition_of_pk/get/put/delete/
@@ -326,30 +337,43 @@ class ColumnarTable:
             self._hkey: Dict[Tuple[int, int], Dict[Tuple[Any, ...], int]] = {}
         else:
             self.hindex = None
+        # device mirror of the hot columns (device_columns); one lock
+        # orders hot-column writes against refreshes, since concurrent
+        # namenodes commit from several threads
+        self._mirror: Optional[Dict[str, torch.Tensor]] = None
+        self._mirror_device: Optional[torch.device] = None
+        self._dirty: List[int] = []   # slots written since the last refresh
+        self._mu = threading.RLock()
 
     # -- slot management -----------------------------------------------
     def _alloc(self) -> int:
         if self._free:
             return self._free.pop()
         if self._top == self._cap:
-            new_cap = self._cap * 2
-            grown = np.full(new_cap, -1, np.int64)
-            grown[:self._cap] = self.part_slots
-            self.part_slots = grown
-            for c, arr in self._hot.items():
-                g = np.full(new_cap, -1, np.int64)
-                g[:self._cap] = arr
-                self._hot[c] = g
-            if self.hindex is not None:
-                g = np.zeros(new_cap, np.uint32)
-                g[:self._cap] = self._namehash
-                self._namehash = g
-            for col in self._cols.values():
-                col.extend([_MISSING] * self._cap)
-            self._cap = new_cap
+            with self._mu:
+                self._grow_slots()
         slot = self._top
         self._top += 1
         return slot
+
+    def _grow_slots(self) -> None:
+        new_cap = self._cap * 2
+        grown = np.full(new_cap, -1, np.int64)
+        grown[:self._cap] = self.part_slots
+        self.part_slots = grown
+        for c, arr in self._hot.items():
+            g = np.full(new_cap, -1, np.int64)
+            g[:self._cap] = arr
+            self._hot[c] = g
+        if self.hindex is not None:
+            g = np.zeros(new_cap, np.uint32)
+            g[:self._cap] = self._namehash
+            self._namehash = g
+        for col in self._cols.values():
+            col.extend([_MISSING] * self._cap)
+        self._cap = new_cap
+        self._mirror = None              # copied whole at next use
+        self._dirty = []
 
     def _store_row(self, slot: int, row: Dict[str, Any]) -> None:
         for col in self._cols.values():
@@ -360,9 +384,12 @@ class ColumnarTable:
                 col = [_MISSING] * self._cap
                 self._cols[k] = col
             col[slot] = v
-        for c, arr in self._hot.items():
-            v = row.get(c)
-            arr[slot] = int(v) if isinstance(v, (int, np.integer)) else -1
+        with self._mu:
+            for c, arr in self._hot.items():
+                v = row.get(c)
+                arr[slot] = int(v) if isinstance(v, (int, np.integer)) else -1
+            if self._mirror is not None:
+                self._dirty.append(slot)
         if self.hindex is not None:
             self._namehash[slot] = name_hash32(row["name"])
 
@@ -373,8 +400,11 @@ class ColumnarTable:
     def _clear_slot(self, slot: int) -> None:
         for col in self._cols.values():
             col[slot] = _MISSING
-        for arr in self._hot.values():
-            arr[slot] = -1
+        with self._mu:
+            for arr in self._hot.values():
+                arr[slot] = -1
+            if self._mirror is not None:
+                self._dirty.append(slot)
 
     # -- inode PK hash-index maintenance --------------------------------
     def _hash_sync(self, key: Tuple[int, int]) -> None:
@@ -526,6 +556,41 @@ class ColumnarTable:
     def hot_column(self, col: str) -> np.ndarray:
         """The live int64 mirror of a hot id column (slots, -1 = empty)."""
         return self._hot[col][:self._top]
+
+    @staticmethod
+    def _for_device(col: str, a: np.ndarray) -> np.ndarray:
+        """A hot column as the treeagg kernel takes it: ids stay int64;
+        parents int32; is_dir and size int32, with cleared slots' -1 as 0
+        (parents and sizes cut to their low 32 bits, as the JAX package
+        casts them)."""
+        if col == "id":
+            return a
+        if col == "parent_id":
+            return a.astype(np.int32)
+        return np.maximum(a, 0).astype(np.int32)
+
+    def device_columns(self, device: Any) -> Dict[str, torch.Tensor]:
+        """The hot columns' slots in use, as tensors on ``device``
+        (:meth:`_for_device` types), equal to the host columns: the first
+        call and the first after a growth copy them whole, later ones only
+        the slots written in between (``index_copy_``)."""
+        device = torch.device(device)
+        with self._mu:
+            if self._mirror is None or self._mirror_device != device:
+                self._dirty = []
+                self._mirror_device = device
+                self._mirror = {
+                    c: torch.from_numpy(self._for_device(c, a)).to(
+                        device, copy=True) for c, a in self._hot.items()}
+            elif self._dirty:
+                idx = np.unique(np.asarray(self._dirty, np.int64))
+                self._dirty = []
+                at = torch.from_numpy(idx).to(device)
+                for c, m in self._mirror.items():
+                    m.index_copy_(0, at, torch.from_numpy(
+                        self._for_device(c, self._hot[c][idx])).to(device))
+            top = self._top
+            return {c: m[:top] for c, m in self._mirror.items()}
 
 
 class ColumnarMetadataStore(MetadataStore):
@@ -802,9 +867,11 @@ def validate_window_pks(store: MetadataStore, ct: ColumnarTrace, *,
     validation is purely advisory, so the dict backend simply skips it.
 
     A demoted op is NOT failed: the planner clears its resolution so it
-    rides the exact sequential path, which is also why a stale-but-
-    revalidated-server-side hint and a demotion produce byte-identical
-    final state."""
+    rides the exact sequential path, with the outcome and the logical
+    namespace it would have had.  Its physical state may differ from the
+    dict store's: the sequential path may run the op on another namenode,
+    which draws inode and block ids from its own allocator block and
+    stamps mtimes from its own clock."""
     if min_batch is None:
         min_batch = PKVAL_MIN_BATCH          # runtime lookup: patchable
     try:
@@ -850,9 +917,67 @@ def prevalidate_chains(store: MetadataStore,
     return [k not in demoted for k in range(len(chains))], probes, used
 
 
-# The JAX package's fused subtree wave expansion (``expand_wave``, the
-# treeagg launch site) is not here yet: it comes with the port's treeagg
-# kernel and a device mirror of the inode table's hot columns.
+# ---------------------------------------------------------------------------
+# fused subtree wave expansion (treeagg kernel launch site)
+# ---------------------------------------------------------------------------
+
+
+class WaveExpansion:
+    """One BFS wave resolved in a single fused treeagg launch.
+
+    ``wave`` is the sorted unique member ids the per-member arrays are
+    aligned to; ``counts``/``dirs``/``sizes`` are int64 segment sums over
+    each member's direct children; ``child_ids``/``child_dir_ids`` the
+    children themselves (``child_dir_ids`` is the next frontier)."""
+
+    __slots__ = ("wave", "counts", "dirs", "sizes", "child_ids",
+                 "child_dir_ids")
+
+    def __init__(self, wave, counts, dirs, sizes, child_ids, child_dir_ids):
+        self.wave = wave
+        self.counts = counts
+        self.dirs = dirs
+        self.sizes = sizes
+        self.child_ids = child_ids
+        self.child_dir_ids = child_dir_ids
+
+    @property
+    def n_children(self) -> int:
+        return int(self.counts.sum())
+
+
+def expand_wave(store: MetadataStore, wave_ids: Iterable[int], *,
+                min_batch: Optional[int] = None
+                ) -> Optional[WaveExpansion]:
+    """Resolve one subtree BFS wave — every member's direct children plus
+    the ``du``/``content_summary`` segment sums — in ONE ``treeagg``
+    launch on the store's device, over the device mirror of the columnar
+    inode table's hot columns.
+
+    Returns None on the dict backend or below the slot-count gate (small
+    tables then behave identically to the dict store).  Sizes are summed
+    as int32 inside the launch and widened to int64 here; the modeled file
+    sizes stay far below the 2^31 partial-sum bound."""
+    if min_batch is None:
+        min_batch = TREEAGG_MIN_BATCH        # runtime lookup: patchable
+    try:
+        t = store.table("inode")
+    except KeyError:
+        return None
+    if not isinstance(t, ColumnarTable) or "size" not in t._hot:
+        return None
+    if t._top < max(2, min_batch):
+        return None
+    wave = np.unique(np.fromiter(wave_ids, dtype=np.int64))
+    if wave.size == 0:
+        return None
+    cols = t.device_columns(store.device)
+    from ..kernels.treeagg.ops import treeagg_expand
+    counts, dirs, sizes, child_ids, child_dir_ids = treeagg_expand(
+        wave, cols["id"], cols["parent_id"], cols["is_dir"], cols["size"])
+    return WaveExpansion(wave, counts.astype(np.int64),
+                         dirs.astype(np.int64), sizes.astype(np.int64),
+                         child_ids, child_dir_ids)
 
 
 # ---------------------------------------------------------------------------

@@ -134,12 +134,20 @@ class Namenode:
         self.pkval_launches = 0
         self.pkval_probes = 0
         self.pkval_demotions = 0
+        # fused subtree/aggregation telemetry lives on ops + subtree;
+        # see the treeagg_launches property below
         # prebuilt default retry chain — the batch hot path must not
         # recompose middleware per op. txn_retry sits inside: a lock
         # timeout under concurrent workers aborted atomically (§7.5), so
         # the op re-runs instead of surfacing a spurious failure
         self._safe_handler = compose([subtree_retry(), txn_retry()],
                                      lambda ctx: self.invoke(ctx.wop))
+
+    @property
+    def treeagg_launches(self) -> int:
+        """Fused treeagg launches across this NN's two launch sites: the
+        du aggregation (ops) and the phase-2 wave advisory (subtree)."""
+        return self.ops.treeagg_launches + self.subtree.treeagg_launches
 
     def is_leader(self) -> bool:
         return self.election.leader() == self.nn_id

@@ -33,11 +33,12 @@ transactions:
             long-running subtree op.  Rename/chmod/chown/quota mutate only
             the subtree root in a single small transaction.
 
-The JAX package additionally resolves each BFS wave on the columnar store
-with one advisory ``treeagg`` launch, which charges no :class:`OpCost` and
-changes no state.  The port leaves that launch out until its ``treeagg``
-kernel and the inode columns' device mirror arrive; the transactional wave
-scans, which decide everything, are unchanged.
+On the columnar store each BFS wave is additionally resolved by ONE fused
+``treeagg`` launch over the inode table's hot columns on the store's
+device.  The launch is ADVISORY here — the transactional scans stay
+authoritative (and charge identical :class:`OpCost` on both backends) — but
+it exercises and cross-checks the exact kernel the ``du`` aggregation
+trusts.
 
 Failure handling (§6.2): the flag holds the owner namenode's id; any other
 namenode finding a flag owned by a dead namenode reclaims it. A delete that
@@ -217,6 +218,10 @@ class SubtreeOps:
         #: lifetime ``scan_index("id", ...)`` hops spent on ancestor walks
         #: (the phase-1 overlap check) — what the scaling suite bounds
         self.ancestor_scans = 0
+        # treeagg kernel telemetry (advisory phase-2 launches); a mismatch
+        # is a wave whose launch and scans disagreed on the child count
+        self.treeagg_launches = 0
+        self.treeagg_mismatches = 0
         # one persistent pool per namenode, shared by wave scans and
         # parallel chunk commits (never nested), sized lazily at first use
         self._executor: Optional[_BoundedWaitPool] = None
@@ -349,6 +354,19 @@ class SubtreeOps:
     # ------------------------------------------------------------------
     # Phase 2: quiesce (streaming waves / legacy full tree)
     # ------------------------------------------------------------------
+    def _fused_wave(self, dir_ids: Sequence[int]) -> Optional[Any]:
+        """ADVISORY columnar fast path: resolve the whole wave in one
+        ``treeagg`` launch over the inode hot columns.  Charges zero
+        OpCost — the transactional scans remain authoritative and
+        cost-identical across backends — but exercises and cross-checks
+        the exact kernel the ``du`` aggregation trusts.  None on the dict
+        backend / below the slot-count gate; a kernel error is raised."""
+        from .columnar import expand_wave
+        exp = expand_wave(self.store, dir_ids)
+        if exp is not None:
+            self.treeagg_launches += 1
+        return exp
+
     def _pool(self) -> _BoundedWaitPool:
         """The namenode's long-lived scan/commit pool. Spinning a fresh
         pool per wave churns thread create/join on every subtree op; one
@@ -364,8 +382,7 @@ class SubtreeOps:
         directories — one partition-pruned scan per directory (all
         children co-located, §4.2), a thread pool across directories.
         Returns the child-row lists aligned with ``dir_ids``."""
-        # the advisory fused treeagg wave of the JAX package is not here
-        # yet: it comes with the port's treeagg kernel
+        exp = self._fused_wave(dir_ids)
 
         def scan_dir(did: int) -> List[Dict[str, Any]]:
             with Transaction(self.store, partition_hint=("inode", did),
@@ -386,6 +403,10 @@ class SubtreeOps:
             kid_lists = list(self._pool().map(scan_dir, dir_ids))
         else:
             kid_lists = [scan_dir(d) for d in dir_ids]
+        if exp is not None \
+                and exp.n_children != sum(len(k) for k in kid_lists):
+            # concurrent mutation between launch and scans: scans win
+            self.treeagg_mismatches += 1
         return kid_lists
 
     def _phase2_build_tree(self, root: Dict[str, Any], cost: OpCost

@@ -15,7 +15,7 @@ from typing import Dict
 
 #: CUDA launches per kernel since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"phash": 0, "phash_chain": 0, "pkval": 0,
-                            "hintchain": 0}
+                            "hintchain": 0, "treeagg": 0}
 
 
 def reset_launch_counts() -> None:

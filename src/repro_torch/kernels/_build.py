@@ -13,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("metadata_kernels.cu",)
@@ -27,17 +28,32 @@ ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v") + ARCH_FLAGS
 
-_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_uint
-#: ctypes signature of every launcher: pointers and the stream as void*,
-#: sizes as long long — a bare Python int would be cut to 32 bits
-SIGNATURES: Dict[str, tuple] = {
-    "phash_launch": (_P, _P, _L, _U, _P),
-    "phash_chain_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _U, _P),
-    "pkval_launch": (_P, _P, _P, _L, _P, _P, _P, _L, _I, _P),
-    "hintchain_launch": (_P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _P,
-                         _L, _I, _I, _I, _P),
-}
+#: C parameter types the launchers use, and their ctypes: pointers and the
+#: stream as void*, sizes as long long (a bare Python int would be cut to
+#: 32 bits)
+_CTYPES = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+           "int": ctypes.c_int, "unsigned": ctypes.c_uint}
+
+
+def signatures() -> Dict[str, List[type]]:
+    """The ctypes argument list of every launcher, read from the
+    ``extern "C"`` prototypes of the sources, so the two cannot drift."""
+    out: Dict[str, List[type]] = {}
+    for s in SOURCES:
+        text = (CSRC / s).read_text()
+        block = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"\bint\s+(\w+_launch)\s*\(([^)]*)\)",
+                                       block):
+            args = []
+            for p in params.split(","):
+                ctype = re.sub(r"\bconst\b|\s*\w+\s*$", "", p.strip())
+                ctype = re.sub(r"\s+", " ", ctype).replace(" *", "*").strip()
+                if ctype not in _CTYPES:
+                    raise ValueError(f"{s}: {name}: no ctypes for {p!r}")
+                args.append(_CTYPES[ctype])
+            out[name] = args
+    return out
+
 
 _lib: Optional[ctypes.CDLL] = None
 _mu = threading.Lock()
@@ -82,9 +98,9 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in signatures().items():
             fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         build_info.update(seconds=time.perf_counter() - t0, path=str(out),
                           log=log)

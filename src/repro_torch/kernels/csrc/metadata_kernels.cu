@@ -1,17 +1,20 @@
 // Hand-written Hopper (sm_90a) kernels for the metadata plane's integer
-// hot paths: partition hashing, chain hashing, composite-PK validation and
-// hint-chain resolution.  They replace the Pallas TPU kernels
+// hot paths: partition hashing, chain hashing, composite-PK validation,
+// hint-chain resolution and subtree wave expansion.  They replace the Pallas
+// TPU kernels
 //
 //   phash        repro/kernels/phash/kernel.py      phash, phash_chain
 //   pkval        repro/kernels/pkval/kernel.py      pkval
 //   hintchain    repro/kernels/hintchain/kernel.py  hintchain
+//   treeagg      repro/kernels/treeagg/kernel.py    treeagg
 //
 // and compute the same functions bit for bit.  Every value is a 32-bit
 // integer; uint32 keys and name hashes travel as int32 bit patterns and are
-// reinterpreted here.  All four are bound by device-memory traffic (a few
+// reinterpreted here.  All five are bound by device-memory traffic (a few
 // integer operations per byte), so each is one thread per output row with a
-// grid-stride loop; the hash-table probes read the read-only index through
-// the non-coherent cache (__ldg).  Nothing is padded: the kernels take any n.
+// grid-stride loop; the hash-table probes and the wave search read their
+// read-only tables through the non-coherent cache (__ldg).  Nothing is
+// padded: the kernels take any n.
 //
 // Plain C interface (loaded with ctypes): each launcher takes device
 // pointers, sizes and the CUDA stream to launch on, and returns the
@@ -149,6 +152,57 @@ __global__ void hintchain_kernel(
   }
 }
 
+// One thread per inode-table slot.  A lower-bound search of the slot's
+// parent in the sorted wave gives the wave member the slot is a child of
+// (seg; -1 = none, cleared slots carry parent -1).  The per-member sums of
+// 1, is_dir and size are warp-aggregated before the atomics: the lanes of a
+// warp that found the same member add their values with __reduce_add_sync
+// and one of them adds the warp's share, so a directory with a million
+// children costs ~n/32 atomics on its counters rather than n.  Sums wrap
+// modulo 2^32 like the TPU kernel's int32 sums, in any order.  The whole
+// warp walks the grid-stride loop together (the loop runs over warp bases),
+// so every lane takes part in the warp-wide intrinsics.
+__global__ void treeagg_kernel(
+    const int32_t* __restrict__ wave, int w, const int32_t* __restrict__ par,
+    const int32_t* __restrict__ isdir, const int32_t* __restrict__ size,
+    int32_t* __restrict__ seg, int32_t* __restrict__ counts,
+    int32_t* __restrict__ dirs, int32_t* __restrict__ sizes, long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = blockIdx.x * (long long)blockDim.x + threadIdx.x - lane;
+       base < n; base += stride) {
+    const long long i = base + lane;
+    int32_t s = -1;
+    uint32_t d = 0, z = 0;
+    if (i < n) {
+      const int32_t p = par[i];
+      if (p >= 0) {
+        int lo = 0, hi = w;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (__ldg(wave + mid) < p) lo = mid + 1; else hi = mid;
+        }
+        if (lo < w && __ldg(wave + lo) == p) s = lo;
+      }
+      seg[i] = s;
+      if (s >= 0) {
+        d = (uint32_t)isdir[i];
+        z = (uint32_t)size[i];
+      }
+    }
+    const unsigned group = __match_any_sync(0xffffffffu, s);
+    if (s >= 0) {
+      const uint32_t dsum = __reduce_add_sync(group, d);
+      const uint32_t zsum = __reduce_add_sync(group, z);
+      if (lane == __ffs(group) - 1) {
+        atomicAdd((unsigned*)counts + s, (unsigned)__popc(group));
+        atomicAdd((unsigned*)dirs + s, dsum);
+        atomicAdd((unsigned*)sizes + s, zsum);
+      }
+    }
+  }
+}
+
 inline unsigned grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
@@ -201,6 +255,18 @@ int hintchain_launch(const void* cp, const void* cn, const void* cv,
       (const int32_t*)fv, (uint32_t)(fcap - 1), (const int32_t*)names,
       (const int32_t*)depths, (int32_t*)child, (int32_t*)src, n, depth,
       root_id, max_probe);
+  return (int)cudaGetLastError();
+}
+
+// counts, dirs and sizes must hold zeros: the kernel adds into them.
+int treeagg_launch(const void* wave, int w, const void* par, const void* isdir,
+                   const void* size, void* seg, void* counts, void* dirs,
+                   void* sizes, long long n, void* stream) {
+  if (n <= 0) return 0;
+  treeagg_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)wave, w, (const int32_t*)par, (const int32_t*)isdir,
+      (const int32_t*)size, (int32_t*)seg, (int32_t*)counts, (int32_t*)dirs,
+      (int32_t*)sizes, n);
   return (int)cudaGetLastError();
 }
 

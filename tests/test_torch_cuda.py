@@ -19,6 +19,8 @@ from repro_torch.kernels.phash import kernel as ph_kernel
 from repro_torch.kernels.phash import ref as ph_ref
 from repro_torch.kernels.pkval import kernel as pk_kernel
 from repro_torch.kernels.pkval import ref as pk_ref
+from repro_torch.kernels.treeagg import kernel as ta_kernel
+from repro_torch.kernels.treeagg import ref as ta_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +85,45 @@ def test_probe_kernels_bit_equal(cuda, n):
     got = hc_kernel.hintchain(tp, tn, tv, *fb, names, depths)
     want = hc_ref.hintchain_ref(tp, tn, tv, *fb, names, depths)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("c,w", [(1, 1), (5000, 0), (70_001, 33),
+                                 (1 << 20, 4096)])
+def test_treeagg_kernel_bit_equal(cuda, c, w):
+    """Children of wave members in runs (the warp-aggregated sums), of
+    other ids and cleared slots; sizes large enough for the sums to wrap."""
+    rng = np.random.default_rng(c + w)
+    wave = np.sort(rng.choice(np.arange(2, 8 * w + 10), size=w,
+                              replace=False))
+    par = np.where(rng.random(c) < 0.5, rng.integers(2, 8 * w + 10, size=c),
+                   np.repeat(wave, c // max(w, 1) + 1)[:c] if w else -1)
+    par[rng.random(c) < 0.1] = -1
+    isdir = (rng.random(c) < 0.3) & (par >= 0)
+    size = np.where(par >= 0, rng.integers(0, 2**31 - 1, size=c), 0)
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+            for a in (wave, par, isdir, size)]
+    got = ta_kernel.treeagg(*args)
+    want = ta_ref.treeagg_ref(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_du_on_card_matches_cpu(cuda):
+    def run(device):
+        store = t_col.ColumnarMetadataStore(n_datanodes=4, device=device)
+        T.format_fs(store)
+        nn = T.NamenodeCluster(store, 2).namenodes[0]
+        ns = t_wl.SyntheticNamespace(t_wl.NamespaceSpec(), n_dirs=40,
+                                     files_per_dir=8)
+        T.materialize_namespace(nn, ns)
+        T.materialize_big_dir(nn, "/bulk", 5000)
+        return [(r.value, r.cost.as_dict()) for r in
+                (nn.perform("du", p) for p in ("/", "/w", "/bulk"))]
+
+    cpu = run("cpu")
+    reset_launch_counts()
+    assert run(cuda) == cpu
+    assert launch_counts()["treeagg"] > 0
 
 
 def test_planned_replay_on_card_matches_cpu(cuda):

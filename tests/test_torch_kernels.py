@@ -1,10 +1,11 @@
 """The port's kernel families against the JAX package, on the CPU.
 
-For phash, phash_chain, pkval and hintchain the port's plain PyTorch
-version (what a CPU tensor runs) must be bit-equal to the JAX kernel run in
-interpret mode and to the JAX package's numpy reference, on the same
-seeded inputs: empty input, N not a power of two, depth 0, tombstones,
-AMBIG buckets, padding parents and an index that has grown.  The CUDA
+For phash, phash_chain, pkval, hintchain and treeagg the port's plain
+PyTorch version (what a CPU tensor runs) must be bit-equal to the JAX
+kernel run in interpret mode and to the JAX package's numpy reference, on
+the same seeded inputs: empty input, N not a power of two, depth 0,
+tombstones, AMBIG buckets, padding parents, cleared slots, wrapping sums
+and an index or table that has grown.  The CUDA
 kernels themselves are held against the same plain versions on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
@@ -21,6 +22,8 @@ import repro.kernels.phash.ref as r_ph_ref
 import repro.kernels.pkval.kernel as r_pk_kernel
 import repro.kernels.pkval.ops as r_pk_ops
 import repro.kernels.pkval.ref as r_pk_ref
+import repro.kernels.treeagg.ops as r_ta_ops
+import repro.kernels.treeagg.ref as r_ta_ref
 import repro_torch.core.batch_planner as t_planner
 import repro_torch.core.columnar as t_col
 import repro_torch.core.store as t_store
@@ -29,6 +32,7 @@ import repro_torch.kernels.phash.kernel as t_ph_kernel
 import repro_torch.kernels.phash.ops as t_ph_ops
 import repro_torch.kernels.pkval.ops as t_pk_ops
 import repro_torch.kernels.pkval.ref as t_pk_ref
+import repro_torch.kernels.treeagg.ops as t_ta_ops
 from repro_torch.core.workload import ColumnarTrace, name_hash32
 
 CPU = torch.device("cpu")
@@ -347,3 +351,245 @@ def test_hintchain_matches_jax_kernel_and_ref(n):
         assert {-1, -2, r_col.AMBIG} <= seen
         assert {0, 1, -1} <= set(src.ravel().tolist())
         assert (child[depths == 0] == -2).all()
+
+
+# ---------------------------------------------------------------------------
+# treeagg
+# ---------------------------------------------------------------------------
+
+def _wave_slots(seed, c, w, *, big_sizes=False):
+    """A sorted wave of w ids and c slots: children of wave members,
+    of other ids, and cleared slots (parent -1, is_dir/size 0)."""
+    rng = np.random.default_rng(seed)
+    pool = np.arange(2, 4 * w + 40)
+    wave = np.sort(rng.choice(pool, size=w, replace=False)).astype(np.int32)
+    r = rng.random(c)
+    par = rng.choice(pool, size=c).astype(np.int32)
+    if w:
+        member = r < 0.6
+        par[member] = rng.choice(wave, size=int(member.sum()))
+    cleared = r > 0.9
+    par[cleared] = -1
+    isdir = (rng.random(c) < 0.3).astype(np.int32)
+    hi = 2**31 - 1 if big_sizes else 1000
+    size = rng.integers(0, hi, size=c).astype(np.int32)
+    isdir[cleared] = 0
+    size[cleared] = 0
+    return wave, par, isdir, size
+
+
+@pytest.mark.parametrize("c,w,big", [(0, 3, False), (5, 0, False),
+                                     (1, 1, False), (300, 17, False),
+                                     (1000, 64, False), (2049, 1, False),
+                                     (777, 5, True)])
+def test_treeagg_matches_jax_kernel_and_ref(c, w, big):
+    wave, par, isdir, size = _wave_slots(c + w, c, w, big_sizes=big)
+    got = [t.numpy() for t in t_ta_ops.treeagg(
+        *(torch.from_numpy(a) for a in (wave, par, isdir, size)))]
+    jax_out = r_ta_ops.treeagg_expand(wave, par, isdir, size, interpret=True)
+    ref_out = r_ta_ref.treeagg_ref(wave, par, isdir, size)
+    for g, j, r, n in zip(got, jax_out, ref_out, (c, w, w, w)):
+        assert g.dtype == np.int32 and g.shape == (n,)
+        assert np.array_equal(g, np.asarray(j))
+        assert np.array_equal(g, r)
+    if c > 100 and w > 1:                   # hits, misses and cleared slots
+        assert (got[0] >= 0).any() and (got[0] == -1).any()
+        assert got[1].sum() == (got[0] >= 0).sum()
+    if big:                                 # the int32 size sums wrapped
+        assert (got[3] < 0).any()
+
+
+def _columnar_pair(n_dirs=40, files_per_dir=8):
+    """The same namespace in a JAX-package and a port columnar store."""
+    import repro.core as R
+    import repro.core.workload as r_wl
+    import repro_torch.core as T
+    import repro_torch.core.workload as t_wl
+    out = []
+    for core, col, wl, kw in ((R, r_col, r_wl, {}),
+                              (T, t_col, t_wl, {"device": "cpu"})):
+        store = col.ColumnarMetadataStore(n_datanodes=4, **kw)
+        core.format_fs(store)
+        cluster = core.NamenodeCluster(store, 2)
+        ns = wl.SyntheticNamespace(wl.NamespaceSpec(), n_dirs=n_dirs,
+                                   files_per_dir=files_per_dir)
+        core.materialize_namespace(cluster.namenodes[0], ns)
+        out.append((store, cluster, core))
+    return out
+
+
+def _same_expansion(rstore, tstore, wave):
+    r = r_col.expand_wave(rstore, wave)
+    t = t_col.expand_wave(tstore, wave)
+    assert (r is None) == (t is None)
+    if r is None:
+        return None
+    assert r.used
+    for name in ("wave", "counts", "dirs", "sizes", "child_ids",
+                 "child_dir_ids"):
+        a, b = getattr(r, name), getattr(t, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    return t
+
+
+def test_expand_wave_matches_reference_as_the_table_changes():
+    """Waves over the same tables give the same children and sums in both
+    packages: on the first use of the port's hot-column mirror, after
+    single-row changes (the dirty-slot refresh), and after the table's
+    slot arrays grew (the whole copy)."""
+    (rstore, rcl, _), (tstore, tcl, _) = _columnar_pair()
+    inode = tstore.table("inode")
+    dirs = [r["id"] for part in inode.parts for r in part.values()
+            if r["is_dir"]]
+    waves = [[1], dirs, dirs[::3], [10**6], dirs[:5] + [10**6]]
+    for wave in waves:
+        assert _same_expansion(rstore, tstore, wave) is not None
+    assert inode.n_rows >= t_col.TREEAGG_MIN_BATCH
+    for cl in (rcl, tcl):                       # single-row changes
+        nn = cl.namenodes[1]
+        nn.perform("mkdirs", "/w/extra/deeper")
+        nn.perform("create", "/w/extra/deeper/f")
+        nn.perform("delete_subtree", "/w/extra")
+        nn.perform("create", "/w/late")
+    cap = inode._cap
+    for wave in waves:
+        _same_expansion(rstore, tstore, wave)
+    for cl in (rcl, tcl):                       # a growth of the slots
+        cl.namenodes[0].perform("mkdirs", "/bulk")
+    import repro.core as R
+    import repro_torch.core as T
+    R.materialize_big_dir(rcl.namenodes[0], "/bulk2", 600)
+    T.materialize_big_dir(tcl.namenodes[0], "/bulk2", 600)
+    assert inode._cap > cap
+    bulk = inode.get((1, "bulk2"))["id"]
+    t = _same_expansion(rstore, tstore, [bulk] + dirs[:4])
+    assert t.n_children >= 600
+
+
+def test_expand_wave_gate_and_dict_store():
+    """Below the slot-count gate, and on the dict store, no launch."""
+    import repro_torch.core as T
+    for cls in (t_col.ColumnarMetadataStore, T.MetadataStore):
+        store = cls(n_datanodes=4, device="cpu")
+        T.format_fs(store)
+        T.NamenodeCluster(store, 1).namenodes[0].perform("mkdirs", "/a/b/c")
+        assert t_col.expand_wave(store, [1]) is None
+        small = t_col.expand_wave(store, [1], min_batch=1)
+        if cls is T.MetadataStore:
+            assert small is None
+        else:
+            assert small.n_children == 1 and len(small.child_dir_ids) == 1
+
+
+def test_inode_hot_column_mirror_follows_host():
+    """The hot columns' mirror equals the host columns after puts,
+    deletes and growths of the slot arrays, refreshed incrementally."""
+    import repro_torch.core.tables as t_tables
+    t = t_col.ColumnarTable(t_tables.INODE, 8)
+    rng = np.random.default_rng(11)
+    live = []
+
+    def check():
+        cols = t.device_columns(CPU)
+        for c in ("id", "parent_id", "is_dir", "size"):
+            want = t._for_device(c, t.hot_column(c))
+            assert cols[c].dtype == (torch.int64 if c == "id"
+                                     else torch.int32)
+            assert np.array_equal(cols[c].numpy(), want), c
+
+    caps = set()
+    for step in range(12):
+        for i in range(40):
+            if live and rng.random() < 0.3:
+                t.delete(live.pop(int(rng.integers(len(live)))))
+            else:
+                iid = 100 * step + i + 2
+                row = t_tables.make_inode(iid, int(rng.integers(1, 50)),
+                                          f"n{iid}", bool(rng.random() < .3))
+                row["size"] = int(rng.integers(0, 2**40))
+                t.put(row)
+                live.append((row["parent_id"], row["name"]))
+        caps.add(t._cap)
+        check()
+    assert len(caps) > 1                         # growths happened between
+    mirror = t.device_columns(CPU)["parent_id"]
+    t.delete(live[0])                            # an incremental update
+    assert t.device_columns(CPU)["parent_id"].data_ptr() == \
+        mirror.data_ptr()
+    check()
+
+
+def test_inode_hot_column_mirror_under_concurrent_refreshes():
+    """A writer (puts, deletes, slot growths) races threads that refresh
+    the mirror: no write may be lost from it."""
+    import os
+    import sys
+    import threading
+    import repro_torch.core.tables as t_tables
+    t = t_col.ColumnarTable(t_tables.INODE, 8)
+    stop = threading.Event()
+    errors = []
+
+    def writer():
+        try:
+            for i in range(2000):
+                t.put(t_tables.make_inode(i + 2, 1 + i % 37, f"n{i}",
+                                          i % 5 == 0))
+                if i % 3 == 0:
+                    t.delete((1 + (i // 2) % 37, f"n{i // 2}"))
+        except Exception as e:          # reported by the assert below
+            errors.append(e)
+
+    def refresher():
+        try:
+            while not stop.is_set():
+                t.device_columns(CPU)
+        except Exception as e:
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        rs = [threading.Thread(target=refresher)
+              for _ in range(2 * (os.cpu_count() or 2))]
+        w = threading.Thread(target=writer)
+        for r in rs:
+            r.start()
+        w.start()
+        w.join(timeout=120)
+        stop.set()
+        for r in rs:
+            r.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not w.is_alive() and not any(r.is_alive() for r in rs)
+    assert not errors
+    cols = t.device_columns(CPU)
+    for c in ("id", "parent_id", "is_dir", "size"):
+        assert np.array_equal(cols[c].numpy(),
+                              t._for_device(c, t.hot_column(c))), c
+
+
+# ---------------------------------------------------------------------------
+# the ctypes bindings agree with the C launchers
+# ---------------------------------------------------------------------------
+
+def test_launcher_signatures_match_bindings():
+    """Every launcher's ctypes argument list is read from its C
+    prototype, and each binding passes exactly that many arguments (the
+    stream is added by ``launch``)."""
+    import ast
+    from pathlib import Path
+    from repro_torch.kernels import LAUNCHES, _build
+    sigs = _build.signatures()
+    assert set(sigs) == {f"{k}_launch" for k in LAUNCHES}
+    assert all(s[-1] is __import__("ctypes").c_void_p for s in sigs.values())
+    root = Path(_build.__file__).parent
+    seen = {}
+    for path in root.glob("*/kernel.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "launch":
+                name = node.args[0].value
+                seen[name] = len(node.args) - 1
+    assert seen == {k: len(v) - 1 for k, v in sigs.items()}

@@ -59,6 +59,7 @@ def _replay(pkg, mix, *, n_ops, batch_size, window, columnar=True,
         "nn_pkval_launches": sum(nn.pkval_launches for nn in nns),
         "nn_pkval_probes": sum(nn.pkval_probes for nn in nns),
         "nn_pkval_demotions": sum(nn.pkval_demotions for nn in nns),
+        "treeagg_launches": sum(nn.treeagg_launches for nn in nns),
     }
     return store, stats, counts
 
@@ -108,6 +109,7 @@ def test_planned_replay_with_demotions_matches_reference():
     port = _replay("port", "spotify", **kw)
     _assert_same(ref, port)
     assert port[2]["pkval_demotions"] > 0
+    assert port[2]["treeagg_launches"] > 0     # subtree deletes' waves
     # the dict store demotes nothing: a demoted op runs sequentially on
     # another namenode and draws other ids, so only the logical namespace
     # and the outcomes' success agree with it — in both packages alike
@@ -173,3 +175,25 @@ def test_client_batch_read_run_matches_reference(monkeypatch):
     assert as_tuple(rout) == as_tuple(tout)
     assert rcounts == tcounts
     assert sum(c[0] for c in tcounts) >= 1      # pkval ran on the read run
+
+
+def test_du_matches_reference():
+    """``du`` on the columnar store resolves each wave with one treeagg
+    launch, in both packages alike: the same sums, the same (kernel-path)
+    costs and launches; the port's dict store gives the same sums."""
+    paths = ["/w", "/w/d1x0uuuuuuuu", "/w/d1x1uuuuuuuu/d2x0uuuuuuuu", "/"]
+    results = {}
+    for pkg, columnar in (("repro", True), ("port", True), ("port", False)):
+        store, cluster, ns = _build(pkg, columnar, n_dirs=40,
+                                    files_per_dir=8)
+        nn = cluster.namenodes[1]
+        out = [nn.perform("du", p) for p in paths + [ns.files[0]]]
+        results[pkg, columnar] = ([r.value for r in out],
+                                  [r.cost.as_dict() for r in out],
+                                  nn.treeagg_launches)
+    ref, port, dct = (results["repro", True], results["port", True],
+                      results["port", False])
+    assert port == ref
+    assert port[2] > 0 and dct[2] == 0
+    assert dct[0] == port[0]
+    assert port[0][0]["inodes"] > 300
