@@ -515,7 +515,9 @@ def canonical_state(store):
     out) with inode ids replaced by paths, block ids by (file path, block
     index), and the namenodes' own atime/mtime clocks left out: what two
     runs must share when the same ops ran on other namenodes, which draw
-    other ids and stamp other times."""
+    other ids and stamp other times.  An id whose inode is gone (the lease
+    rows that deleted files leave behind) becomes "no inode": such rows
+    are compared by their number only."""
     by_id = {r["id"]: r for part in store.table("inode").parts
              for r in part.values()}
     paths = {1: ""}                            # the root inode
@@ -525,7 +527,7 @@ def canonical_state(store):
         while iid not in paths:
             row = by_id.get(iid)
             if row is None or len(chain) > len(by_id):
-                return ("no inode", iid)
+                return ("no inode",)
             chain.append(row)
             iid = row["parent_id"]
         p = paths[iid]
