@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py [--seed 0] [--bulk 1000000] [--ops 20000]
 
-Phases, each printing its results on lines of its own; any failure raises
-and the script exits non-zero:
+Drives both ported paths, the metadata request path (phases 2-4) and the
+zamba2 model path (phases 5-7).  Phases, each printing its results on
+lines of its own; any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``) and
-   the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+   the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together).
 2. Kernel vs plain version on the card, bit-equal, on seeded synthetic
    inputs: phash over 1,048,576 keys, phash_chain at N=4096, D=16,
    pkval against a 2^23-slot index with ~1M live entries, tombstones and
@@ -37,9 +39,41 @@ and the script exits non-zero:
    (``canonical_state``); byte-equal, ids and all, when pkval demoted no
    chain.
 
-The line before the last is the kernels' JSON, the last line the device
-JSON.  Without a CUDA device, or outside the repository, it exits non-zero
-and prints no result.
+5. The model kernels against their plain versions on the card, at
+   synthetic sizes, in bf16 and fp32: flash attention at B=1, S=4096,
+   H=32, KV=8, hd=128 with window None/1024 and softcap None/50, at
+   zamba2's H=KV=32, hd=80, and at a ragged S=1000; the SSD scan at B=2,
+   S=4096, H=80, hd=64, N=64, Q=128 with and without an initial state,
+   and at a ragged S=1000.  Tolerances: tests/test_kernels.py's (FLASH_TOL,
+   SSD_TOL).  ``library_ms`` is one ``scaled_dot_product_attention`` call
+   on the same inputs (none with a softcap; none for the SSD scan).
+6. The zamba2 model path on the card: ``get_config("zamba2_2_7b")``
+   unchanged (54 layers, full width, 6,587,337,888 parameters in fp32 from
+   a seeded ``torch.Generator`` on the card).  A scoring ``forward`` at
+   B=2, S=4096 with ``use_kernels=True``: the launch counts are set to 0
+   just before and read just after, and must be exactly 9 flash_attention
+   and 54 ssd; its logits held against the plain path's.  Each kernel's
+   first call on that path is replayed against its plain version, which
+   gives the JSON line's times and bounds.  The same forward once more with
+   every one of its launches held against the plain version on that
+   launch's own inputs.  A cache-filling prefill (B=4, S=1024 into a
+   2048-slot cache), kernel path against plain on the logits and every
+   cache leaf, and once more launch by launch.  ``ServeEngine(max_batch=4, max_seq=256)``
+   answers 4 requests of 8-64 prompt tokens, 16 new tokens each.
+7. Host check at full width and 6 layers (one shared-attention
+   application), the same parameter tensors on the CPU: the card's kernel
+   path against the host's plain path on a B=1, S=512 forward, and the
+   card's engine against the host's on every decode step's logits, both
+   fed the host's tokens.
+   Phases 6 and 7 hold a bf16 result against the plain bf16 result by
+   the plain path's own bf16-vs-fp32 gap (NOISE_FACTOR, NOISE_FLOOR):
+   random weights amplify any rounding, so no fixed tolerance fits.  At
+   54 layers that gap saturates (bf16 and fp32 logits are uncorrelated),
+   so there the launch-by-launch checks carry the kernels' correctness.
+
+The line before the last is the kernels' JSON (seven kernels), the last
+line the device JSON.  Without a CUDA device, or outside the repository,
+it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -554,6 +588,474 @@ def canonical_state(store):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 5 to 7: the model stack's float kernels and the zamba2 path
+# ---------------------------------------------------------------------------
+
+MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
+MODEL_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
+    "ssd": "src/repro/kernels/mamba2_ssd/kernel.py:76",
+}
+#: H100 SXM data sheet, dense: bf16 on the tensor cores, fp32 on the CUDA
+#: cores (the rate of each input type)
+FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: kernel vs plain version: tests/test_kernels.py's tolerances (flash atol
+#: 2e-5 fp32 / 2e-2 bf16 with rtol 1e-2; the SSD scan four times those
+#: with rtol 2e-2)
+FLASH_TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}
+SSD_TOL = {torch.float32: (8e-5, 2e-2), torch.bfloat16: (8e-2, 2e-2)}
+#: model phase and host check: bf16 rounds at other places on the two
+#: paths (kernels vs plain, card vs host), and random weights amplify a
+#: rounding; so a bf16 result must be no further from the plain bf16
+#: result than that is from the plain fp32 result, times NOISE_FACTOR,
+#: plus NOISE_FLOOR (relative L2 over the whole tensor)
+NOISE_FACTOR = 1.5
+NOISE_FLOOR = 1e-3
+#: sizes: the synthetic kernel phase's sequence and ragged lengths; the
+#: model phase's scoring (B, S), prefill (B, S, cache slots) and serving
+#: prompts; the host check's depth and (B, S)
+SYNTH_S, RAGGED_S = 4096, 1000
+SCORE_BS = (2, 4096)
+PREFILL_BSC = (4, 1024, 2048)
+SERVE_PROMPTS = (8, 24, 40, 64)
+HOST_LAYERS, HOST_BS = 6, (1, 512)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float().to(a.device)
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def within_noise(name: str, got, plain, plain_fp32) -> str:
+    """Hold ``got`` against ``plain`` by the noise rule above; returns the
+    line to log."""
+    err, noise = rel_l2(got, plain), rel_l2(plain, plain_fp32)
+    ok = bool(torch.isfinite(got.float()).all()) \
+        and err <= NOISE_FACTOR * noise + NOISE_FLOOR
+    mae = float((got.float() - plain.float().to(got.device)).abs().max())
+    line = (f"{name}: rel_l2={err:.6f} max_abs={mae:.6f} "
+            f"noise(bf16 vs fp32 plain)={noise:.6f}")
+    if not ok:
+        raise AssertionError(f"{line}: above {NOISE_FACTOR} x noise + "
+                             f"{NOISE_FLOOR}")
+    return line
+
+
+def fbound(bytes_: int, flops: int, dtype) -> tuple:
+    """(bound_ms, bound_by, bytes, operations) of one float kernel call."""
+    tb = bytes_ / BYTES_PER_S * 1e3
+    tf = flops / FLOPS_PER_S[dtype] * 1e3
+    return (tb, "bytes", bytes_, flops) if tb >= tf \
+        else (tf, "operations", bytes_, flops)
+
+
+def work_flash(q, k, v, causal=True, window=None, softcap=None):
+    """q, k, v read once and the output written once; 4 hd operations
+    (q.k and p.v) per visible (query, key) pair: causal rows see their
+    position + 1 keys, a window caps that."""
+    B, S, H, hd = q.shape
+    vis = torch.arange(1, S + 1) if causal else torch.full((S,), S)
+    if window is not None:
+        vis = vis.clamp(max=window)
+    pairs = B * H * int(vis.sum())
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return fbound(n_bytes, 4 * hd * pairs, q.dtype)
+
+
+def work_ssd(x, dt, A, Bc, Cc, h0=None, chunk=128):
+    """Inputs read once, y and h written once.  Operations per chunk of L
+    steps: C.B^T on and below the diagonal once per batch row (B and C are
+    shared across heads), then per head the decay matrix (3 per entry),
+    M @ x, (C e^cum) @ h^T, the state update and its decay."""
+    B, S, H, hd = x.shape
+    N = Bc.shape[-1]
+    Q = min(chunk, S)
+    flops = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        tri = L * (L + 1) // 2
+        flops += B * 2 * N * tri
+        flops += B * H * (3 * tri + 2 * hd * tri + 4 * L * N * hd
+                          + 2 * hd * N)
+    e = x.element_size()
+    n_bytes = (2 * x.numel() * e + (Bc.numel() + Cc.numel()) * e
+               + 4 * (dt.numel() + A.numel()) + 4 * B * H * hd * N
+               * (2 if h0 is not None else 1))
+    return fbound(n_bytes, flops, x.dtype)
+
+
+def sdpa_fn(q, k, v, window=None, softcap=None):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function (a boolean mask for the window, GQA by ``enable_gqa``), or
+    None where it has no softcap."""
+    if softcap:
+        return None
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+
+
+def model_kernel_row(name, args, kw, tag, reps=10):
+    """Kernel vs plain version on one input set: checked within tolerance,
+    timed; returns the row's numbers."""
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.mamba2_ssd import kernel as sk, ref as sr
+    if name == "flash_attention":
+        kern, plain, work = fk.flash_attention_fwd, fr.attention_ref, \
+            work_flash
+        tol = FLASH_TOL[args[0].dtype]
+        lib = sdpa_fn(*args, window=kw.get("window"),
+                      softcap=kw.get("softcap"))
+    else:
+        kern, plain, work = sk.ssd_fwd, sr.ssd_ref, work_ssd
+        tol = SSD_TOL[args[0].dtype]
+        lib = None
+    got, want = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = 0.0
+    for g, w in pairs:
+        torch.testing.assert_close(g.float(), w.float(), atol=tol[0],
+                                   rtol=tol[1],
+                                   msg=lambda m: f"{name} {tag}: {m}")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    del got, want
+    ms = device_ms(lambda: kern(*args, **kw), reps=reps, warmup=1)
+    call_ms = cuda_ms(lambda: kern(*args, **kw), reps=reps, warmup=1)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+    lib_ms = None if lib is None else device_ms(lib, reps=reps, warmup=1)
+    b_ms, b_by, n_bytes, n_ops = work(*args, **kw)
+    shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+    opts = {k: tuple(v.shape) if torch.is_tensor(v) else v
+            for k, v in kw.items() if v is not None}
+    log(f"{tag} {name} {str(args[0].dtype)[6:]} {opts} "
+        f"shapes={shapes}: max_abs_err={err:.3g} (atol {tol[0]}, rtol "
+        f"{tol[1]}) ms={ms:.6f} call_ms={call_ms:.6f} "
+        f"plain_ms={plain_ms:.6f} library_ms="
+        f"{'null' if lib_ms is None else f'{lib_ms:.6f}'} "
+        f"bound_ms={b_ms:.6f} ({b_by}; bytes={n_bytes} ops={n_ops})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_model_kernels(seed: int, dev) -> None:
+    """Phase 5: both model kernels against their plain versions at the
+    synthetic sizes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(1, SYNTH_S, 32, 128, dtype=dtype)
+        k, v = randn(1, SYNTH_S, 8, 128, dtype=dtype), \
+            randn(1, SYNTH_S, 8, 128, dtype=dtype)
+        for window in (None, 1024):
+            for softcap in (None, 50.0):
+                model_kernel_row("flash_attention", (q, k, v),
+                                 dict(causal=True, window=window,
+                                      softcap=softcap), "phase5")
+        zq, zk, zv = (randn(1, SYNTH_S, 32, 80, dtype=dtype)
+                      for _ in range(3))
+        model_kernel_row("flash_attention", (zq, zk, zv),
+                         dict(causal=True, window=None, softcap=None),
+                         "phase5")
+        rq, rk, rv = (randn(1, RAGGED_S, 32, 80, dtype=dtype)
+                      for _ in range(3))
+        model_kernel_row("flash_attention", (rq, rk, rv),
+                         dict(causal=True, window=None, softcap=None),
+                         "phase5 ragged")
+        del q, k, v, zq, zk, zv, rq, rk, rv
+        B, S, H, hd, N = 2, SYNTH_S, 80, 64, 64
+        x = randn(B, S, H, hd, dtype=dtype)
+        dt = torch.nn.functional.softplus(randn(B, S, H))
+        A = -torch.exp(randn(H) * 0.3)
+        Bc, Cc = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
+        h0 = randn(B, H, hd, N)
+        for h in (None, h0):
+            model_kernel_row("ssd", (x, dt, A, Bc, Cc),
+                             dict(h0=h, chunk=128), "phase5")
+        cut = tuple(t[:, :RAGGED_S].contiguous() for t in (x, dt, Bc, Cc))
+        model_kernel_row("ssd", cut[:2] + (A,) + cut[2:],
+                         dict(h0=h0, chunk=128), "phase5 ragged")
+        torch.cuda.empty_cache()
+
+
+class KernelWatch:
+    """Wraps the two model kernel bindings: keeps a copy of each one's
+    first call and, with ``check``, holds every launch against the plain
+    version on the same inputs (FLASH_TOL, SSD_TOL) and keeps the largest
+    error of each kernel."""
+
+    def __init__(self, check: bool = False):
+        from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+        from repro_torch.kernels.mamba2_ssd import kernel as sk, ref as sr
+        self.calls, self.checked = {}, {}
+        self._orig = [(fk, "flash_attention_fwd", fk.flash_attention_fwd),
+                      (sk, "ssd_fwd", sk.ssd_fwd)]
+        for (mod, attr, real), name, plain, tol in zip(
+                self._orig, ("flash_attention", "ssd"),
+                (fr.attention_ref, sr.ssd_ref), (FLASH_TOL, SSD_TOL)):
+            setattr(mod, attr, self._wrap(name, real, plain if check
+                                          else None, tol))
+
+    def _wrap(self, name, real, plain, tol):
+        def watched(*args, **kw):
+            if name not in self.calls:
+                self.calls[name] = (tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args),
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in kw.items()})
+            got = real(*args, **kw)
+            if plain is not None:
+                want = plain(*args, **kw)
+                atol, rtol = tol[args[0].dtype]
+                pairs = zip(got, want) if isinstance(got, tuple) \
+                    else [(got, want)]
+                n, err = self.checked.get(name, (0, 0.0))
+                for g, w in pairs:
+                    torch.testing.assert_close(
+                        g.float(), w.float(), atol=atol, rtol=rtol,
+                        msg=lambda m: f"{name} launch {n}: {m}")
+                    err = max(err, float((g.float() - w.float()).abs().max()))
+                self.checked[name] = (n + 1, err)
+            return got
+        return watched
+
+    def restore(self):
+        for mod, attr, real in self._orig:
+            setattr(mod, attr, real)
+
+
+def checked_run(fn) -> str:
+    """Runs ``fn`` with every model kernel launch held against its plain
+    version; returns the line to log."""
+    watch = KernelWatch(check=True)
+    try:
+        fn()
+    finally:
+        watch.restore()
+    return "every launch within tolerance of its plain version: " + \
+        ", ".join(f"{k} {n} launches max_abs_err={e:.4g}"
+                  for k, (n, e) in watch.checked.items())
+
+
+def zamba_params(cfg, seed: int, dev):
+    from repro_torch.models import init_params, param_specs
+    return init_params(param_specs(cfg),
+                       torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+
+
+def engine_cache(cfg, B: int, S_max: int, dev):
+    """Zeros in the serving engine's cache dtypes (bf16 at rank >= 3)."""
+    from repro_torch.models import init_cache_specs
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda s: torch.zeros(
+        s.shape, dtype=torch.bfloat16 if len(s.shape) >= 3
+        else torch.float32, device=dev), init_cache_specs(cfg, B, S_max))
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_model(seed: int, dev) -> tuple:
+    """Phase 6: the full zamba2_2_7b on the card.  Returns the two kernel
+    rows of the JSON line (launches from the scoring forward, the main
+    path; times and errors on its own first inputs) and the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import count_params, forward, param_specs
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("zamba2_2_7b")
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: zamba_params(cfg, seed, dev))
+    n_apps = cfg.n_layers // cfg.shared_attn_every
+    log(f"phase6 zamba2_2_7b: {count_params(param_specs(cfg))} params fp32 "
+        f"on the card, {cfg.n_layers} layers, {n_apps} shared-attention "
+        f"applications, init_s={t_init:.3f}")
+    rng = np.random.default_rng(seed)
+    want = {"flash_attention": n_apps, "ssd": cfg.n_layers}
+
+    # 1. scoring forward, B=2, S=4096
+    tok = rng.integers(0, cfg.vocab_size, SCORE_BS).astype(np.int32)
+    rec = KernelWatch()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    (lk, _), t_k = timed(lambda: forward(params, {"tokens": tok}, cfg=cfg,
+                                         use_kernels=True, device=dev))
+    launches = launch_counts()
+    rec.restore()
+    peak_k = torch.cuda.max_memory_allocated()
+    log(f"phase6 scoring forward B,S={SCORE_BS} use_kernels=True: "
+        f"wall_s={t_k:.4f} launches={json.dumps(launches)} "
+        f"peak_device_bytes={peak_k}")
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"scoring forward launched {got}, want {want}")
+    reset_launch_counts()
+    (lp, _), t_p = timed(lambda: forward(params, {"tokens": tok}, cfg=cfg,
+                                         use_kernels=False, device=dev))
+    (lf, _), t_f = timed(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg.derive(dtype="float32"),
+        use_kernels=False, device=dev))
+    if any(launch_counts().values()):
+        raise AssertionError("the plain path launched a kernel")
+    log(f"phase6 plain forward bf16 wall_s={t_p:.4f}, fp32 wall_s="
+        f"{t_f:.4f}")
+    log("phase6 " + within_noise("scoring logits, kernels vs plain",
+                                 lk, lp, lf)
+        + f" argmax_agree={float((lk.argmax(-1) == lp.argmax(-1)).float().mean()):.4f}")
+    del lk, lp, lf
+    log("phase6 scoring forward again, " + checked_run(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg, use_kernels=True, device=dev)))
+
+    # the kernels on the main path's own first inputs
+    rows = []
+    for name in ("flash_attention", "ssd"):
+        args, kw = rec.calls[name]
+        nums = model_kernel_row(name, args, kw, "phase6 main-path")
+        rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
+                     "replaces": MODEL_REPLACES[name],
+                     "launches": launches[name], **nums})
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+
+    # 2. cache-filling prefill, B=4, S=1024 into a 2048-slot cache
+    B, S, slots = PREFILL_BSC
+    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    reset_launch_counts()
+    (lk, ck), t_k = timed(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg, use_kernels=True, device=dev,
+        cache=engine_cache(cfg, B, slots, dev)))
+    launches = launch_counts()
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"prefill launched {got}, want {want}")
+    (lp, cp), t_p = timed(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg, use_kernels=False, device=dev,
+        cache=engine_cache(cfg, B, slots, dev)))
+    lf, cf = forward(params, {"tokens": tok}, cfg=cfg.derive(
+        dtype="float32"), cache=engine_cache(cfg, B, slots, dev), device=dev)
+    log(f"phase6 prefill B={B} S={S} cache {slots}: kernels "
+        f"wall_s={t_k:.4f} launches={json.dumps(got)} plain "
+        f"wall_s={t_p:.4f}")
+    log("phase6 " + within_noise("prefill logits", lk, lp, lf))
+    log("phase6 prefill again, " + checked_run(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg, use_kernels=True, device=dev,
+        cache=engine_cache(cfg, B, slots, dev))))
+    for key in ck:
+        log("phase6 " + within_noise(
+            f"prefill cache {key} {tuple(ck[key].shape)} "
+            f"{str(ck[key].dtype)[6:]}", ck[key], cp[key], cf[key]))
+    del lk, ck, lp, cp, lf, cf
+    torch.cuda.empty_cache()
+
+    # 3. the serving engine
+    eng = ServeEngine(cfg, params, max_batch=4, max_seq=256, device=dev)
+    lens = SERVE_PROMPTS
+    for i, n in enumerate(lens):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new=16))
+    reset_launch_counts()
+    done, t_serve = timed(lambda: eng.run(max_iters=64))
+    gen = {r.rid: r.generated for r in done}
+    if sorted(gen) != list(range(len(lens))) or any(
+            len(g) != 16 or not all(0 <= t < cfg.vocab_size for t in g)
+            for g in gen.values()):
+        raise AssertionError(f"serving engine: {gen}")
+    log(f"phase6 serve: max_batch=4 max_seq=256, prompts {lens}, max_new=16:"
+        f" wall_s={t_serve:.4f} decode_steps={sum(lens) + 16} "
+        f"launches={json.dumps(launch_counts())} (the decode branch runs no "
+        f"kernel) tokens={json.dumps(gen)}")
+    log(f"phase6 peak_device_bytes={torch.cuda.max_memory_allocated()}")
+    del eng
+    return rows, params
+
+
+def phase_host(params, seed: int, dev) -> None:
+    """Phase 7: full width, 6 layers (one shared-attention application),
+    the same parameter tensors on the host: the card's kernel path against
+    the host's plain path, and the card's engine against the host's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("zamba2_2_7b").derive(n_layers=HOST_LAYERS)
+    p6 = dict(params, layers=tree_map(lambda a: a[:HOST_LAYERS],
+                                      params["layers"]))
+    host = tree_map(lambda t: t.cpu(), p6)
+    rng = np.random.default_rng(seed + 1)
+    tok = rng.integers(0, cfg.vocab_size, HOST_BS).astype(np.int32)
+    card_l, t_c = timed(lambda: forward(p6, {"tokens": tok}, cfg=cfg,
+                                        use_kernels=True, device=dev)[0])
+    t0 = time.perf_counter()
+    host_l, _ = forward(host, {"tokens": tok}, cfg=cfg, device="cpu")
+    t_h = time.perf_counter() - t0
+    host_f, _ = forward(host, {"tokens": tok}, cfg=cfg.derive(
+        dtype="float32"), device="cpu")
+    log(f"phase7 {HOST_LAYERS} layers B,S={HOST_BS}: card (kernels) "
+        f"wall_s={t_c:.4f}, host "
+        f"(plain) wall_s={t_h:.4f}")
+    log("phase7 " + within_noise("logits, card kernels vs host plain",
+                                 card_l, host_l, host_f))
+
+    class Recording(ServeEngine):
+        """Keeps every decode step's tokens, index and last logits."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.steps = []
+
+        def _decode_fn(self, params, tokens, cache, index):
+            logits, new_cache = forward(
+                params, {"tokens": tokens}, cfg=self.cfg, cache=cache,
+                cache_index=index, device=self.device)
+            self.steps.append((tokens.cpu().numpy(), index,
+                               logits[:, -1].float().cpu()))
+            return torch.argmax(logits[:, -1], dim=-1), new_cache
+
+    ref = Recording(cfg, host, max_batch=2, max_seq=64, device="cpu")
+    for i, n in enumerate((6, 3)):
+        ref.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new=4))
+    ref.run()
+    replays = {}
+    for name, c, params_, d in (
+            ("card", cfg, p6, dev),
+            ("host fp32", cfg.derive(dtype="float32"), host, "cpu")):
+        eng = Recording(c, params_, max_batch=2, max_seq=64, device=d)
+        for tokens, index, _ in ref.steps:       # fed the host's tokens
+            _, eng.cache = eng._decode_fn(eng.params, torch.from_numpy(
+                tokens).to(eng.device), eng.cache, index)
+        replays[name] = [s[2] for s in eng.steps]
+    worst = (0.0, "")
+    for i, (_, index, want) in enumerate(ref.steps):
+        line = within_noise(f"decode step {i} index {index}",
+                            replays["card"][i], want,
+                            replays["host fp32"][i])
+        err = rel_l2(replays["card"][i], want)
+        worst = max(worst, (err, line))
+    log(f"phase7 engine: {len(ref.steps)} decode steps, card vs host "
+        f"within noise at every step; worst {worst[1]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -614,7 +1116,7 @@ def main() -> int:
         f"({100 * in_kernels / wall:.2f}%)")
     log(f"phase3 launches: {json.dumps(launches)} peak_device_bytes="
         f"{torch.cuda.max_memory_allocated()}")
-    missing = [k for k, v in launches.items() if v < 1]
+    missing = [k for k in REPLACES if launches[k] < 1]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
 
@@ -687,6 +1189,18 @@ def main() -> int:
         f"{2 * len(col['paths'])} batch stats equal; dump_state "
         f"byte-equal={bytes_equal} with {demoted} demotions; "
         f"dict trace_s={oracle['t_trace']:.3f} du_s={oracle['t_du']:.3f}")
+    del col, oracle
+
+    # -- phases 5 to 7 -----------------------------------------------------
+    t5 = time.perf_counter()
+    phase_model_kernels(args.seed, dev)
+    t6 = time.perf_counter()
+    model_rows, params = phase_model(args.seed, dev)
+    rows += model_rows
+    t7 = time.perf_counter()
+    phase_host(params, args.seed, dev)
+    log(f"phase5_s={t6 - t5:.1f} phase6_s={t7 - t6:.1f} "
+        f"phase7_s={time.perf_counter() - t7:.1f}")
     log(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

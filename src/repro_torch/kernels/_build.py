@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 The kernels in ``csrc/`` have a plain C interface, so they are compiled by
-``nvcc`` straight into a shared library and loaded with ``ctypes`` (no
-PyTorch headers to compile: the build takes seconds, not minutes).  The
-library goes under ``build/kernels/`` at the repository root, named by a
-hash of the sources, and is built at first use: the first kernel launch of
-a process builds it when it is missing.  Needs ``nvcc`` (``CUDA_HOME`` or
-``/usr/local/cuda``) and a card of compute capability 9.0 (``sm_90a``).
+``nvcc`` and loaded with ``ctypes`` (no PyTorch headers to compile: the
+build takes seconds, not minutes).  Every source is compiled to an object
+by its own ``nvcc``, all started together, and the objects are linked into
+one shared library under ``build/kernels/`` at the repository root, named
+by a hash of the sources.  It is built at first use: the first kernel
+launch of a process builds it when it is missing.  Needs ``nvcc``
+(``CUDA_HOME`` or ``/usr/local/cuda``) and a card of compute capability
+9.0 (``sm_90a``).
 """
 from __future__ import annotations
 
@@ -22,17 +24,19 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("metadata_kernels.cu",)
+SOURCES = ("metadata_kernels.cu", "model_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
-NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v") + ARCH_FLAGS
 
 #: C parameter types the launchers use, and their ctypes: pointers and the
 #: stream as void*, sizes as long long (a bare Python int would be cut to
-#: 32 bits)
+#: 32 bits), scales as float (ctypes would pass a bare Python float as a
+#: double)
 _CTYPES = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
-           "int": ctypes.c_int, "unsigned": ctypes.c_uint}
+           "int": ctypes.c_int, "unsigned": ctypes.c_uint,
+           "float": ctypes.c_float}
 
 
 def signatures() -> Dict[str, List[type]]:
@@ -84,18 +88,31 @@ def library() -> ctypes.CDLL:
     with _mu:
         if _lib is not None:
             return _lib
-        out = BUILD_DIR / f"libmetadata_kernels_{_digest()}.so"
+        out = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
         t0 = time.perf_counter()
         log = ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tag = f"{_digest()}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{Path(s).stem}_{tag}.o" for s in SOURCES]
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(SOURCES, objs)]
+            outs = [p.communicate()[0] for p in procs]
+            log = "".join(outs)
+            failed = [s for s, p in zip(SOURCES, procs) if p.returncode]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
+            proc = subprocess.run([_nvcc(), "-shared", *ARCH_FLAGS, "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            for o in objs:
+                o.unlink(missing_ok=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+                raise RuntimeError(f"link failed ({proc.returncode}):\n{log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in signatures().items():
@@ -116,6 +133,19 @@ def require_cuda_int32(**tensors: object) -> None:
             raise ValueError(f"{name}: expected a CUDA tensor")
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: expected int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_cuda_float(**tensors: object) -> None:
+    """The float kernels take contiguous bf16 or fp32 tensors on the card."""
+    import torch
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor")
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"{name}: expected bfloat16 or float32, got "
+                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
 

@@ -1,0 +1,94 @@
+"""Parameter trees: shapes + logical axes + initialization.
+
+Models declare a nested dict of :class:`ParamSpec` (shape, logical axes,
+init law), with the JAX package's names and layout, so one spec tree gives
+
+  * ``init_params``       — tensors on a device, drawn from an explicit
+                            ``torch.Generator``
+  * ``params_from_numpy`` — the JAX package's parameters, carried across
+                            as numpy arrays (the tests' weights carry)
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"        # normal | zeros | ones | scaled
+    scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict (a ParamSpec, a tensor
+    or an array is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested dict, in its keys' insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def init_params(specs: Any, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device: Union[str, torch.device, None] = None) -> Any:
+    """Materialise a spec tree on ``device`` (the card unless asked for
+    the CPU).  ``generator`` must live on that device; the same seed gives
+    the same tensors there (not the JAX package's numbers: the tests carry
+    weights across with :func:`params_from_numpy`)."""
+    dev = resolve_device(device)
+
+    def make(s: ParamSpec) -> torch.Tensor:
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dtype, device=dev)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dtype, device=dev)
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        std = s.scale / math.sqrt(max(1, fan_in))
+        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w.mul_(std)).to(dtype)
+
+    return tree_map(make, specs)
+
+
+def params_from_numpy(tree: Any, device: Union[str, torch.device, None]
+                      = None) -> Any:
+    """A nested dict of numpy arrays (the JAX package's parameters or
+    caches through ``np.asarray``) -> the same tree of tensors on
+    ``device``, dtypes kept (bf16 arrives as ml_dtypes' bfloat16)."""
+    dev = resolve_device(device)
+
+    def conv(a: Any) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+            return t.to(dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return tree_map(conv, tree)
+
+
+def count_params(specs: Any) -> int:
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
+
+
+def param_bytes(specs: Any, bytes_per_param: int = 4) -> int:
+    return count_params(specs) * bytes_per_param

@@ -43,6 +43,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.core, repro_torch.core.columnar\n"
             "import repro_torch.kernels.phash.ops, repro_torch.kernels.pkval.ops\n"
             "import repro_torch.kernels.hintchain.ops\n"
+            "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.mamba2_ssd.ops\n"
             "print(len(repro_torch.core.__all__))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
