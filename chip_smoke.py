@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py [--seed 0] [--bulk 1000000] [--ops 20000]
 
-Drives both ported paths, the metadata request path (phases 2-4) and the
-zamba2 model path (phases 5-7).  Phases, each printing its results on
-lines of its own; any failure raises and the script exits non-zero:
+Drives the ported paths, the metadata request path (phases 2-4), the
+zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
+(phases 8-10).  Phases, each printing its results on lines of its own;
+any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``) and
    the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -65,13 +66,40 @@ lines of its own; any failure raises and the script exits non-zero:
    path against the host's plain path on a B=1, S=512 forward, and the
    card's engine against the host's on every decode step's logits, both
    fed the host's tokens.
-   Phases 6 and 7 hold a bf16 result against the plain bf16 result by
-   the plain path's own bf16-vs-fp32 gap (NOISE_FACTOR, NOISE_FLOOR):
-   random weights amplify any rounding, so no fixed tolerance fits.  At
-   54 layers that gap saturates (bf16 and fp32 logits are uncorrelated),
-   so there the launch-by-launch checks carry the kernels' correctness.
+   Phases 6, 7, 9 and 10 hold a bf16 result against the plain bf16
+   result by the plain path's own bf16-vs-fp32 gap (NOISE_FACTOR,
+   NOISE_FLOOR): random weights amplify any rounding, so no fixed
+   tolerance fits.  At 54 layers that gap saturates (bf16 and fp32 logits
+   are uncorrelated), so there the launch-by-launch checks carry the
+   kernels' correctness.
+   The zamba2 parameters are freed before phase 8.
+8. gmm's own path: the experts' SwiGLU FFN of one qwen3-moe layer over its
+   capacity buffers (E=128, C=640 = ceil(8192 x 8 / 128 x 1.25) for B=2,
+   S=4096 at top-8, D=2048, F=768, bf16) through ``ops.gmm``: exactly 3
+   gmm launches, each held against the plain version; the first one
+   replayed gives the JSON line's times.  Then the WKV scan and gmm
+   against their plain versions, in bf16 and fp32: WKV at B=2, S=4096,
+   H=40, hd=64 with and without an initial state, at a ragged S=1000 with
+   one, and on the strong-decay input (w = 1e-45); gmm at the qwen3-moe
+   shape and a ragged E=8, C=600, D=1000, F=700.  Tolerances:
+   tests/test_kernels.py's (WKV_TOL, GMM_ATOL).  ``library_ms`` is one
+   ``torch.bmm`` call for gmm (none for the WKV scan).
+9. The rwkv6 model path on the card: ``get_config("rwkv6_3b")`` unchanged
+   (32 layers, full width, 3,073,479,680 parameters in fp32 from a seeded
+   ``torch.Generator`` on the card, bf16 compute).  A scoring ``forward``
+   at B=2, S=4096 with ``use_kernels=True``: exactly 32 wkv6 launches and
+   none of the other model kernels; its logits held against the plain
+   path's; the first launch replayed for the JSON line; the forward once
+   more with every launch held against the plain version.  A cache-filling
+   prefill in two segments (B=4: S=1024 from the engine's zero cache, then
+   S=1024 more from the returned cache, so the kernel starts from a
+   nonzero state), 32 launches each, the second segment's logits and
+   cache leaves against the plain path's and its launches one by one.
+   ``ServeEngine(max_batch=4, max_seq=256)`` on 4 requests of 8-64 prompt
+   tokens, 16 new tokens each, with its time per decode step.
+10. Host check at full width and 4 layers, as phase 7.
 
-The line before the last is the kernels' JSON (seven kernels), the last
+The line before the last is the kernels' JSON (nine kernels), the last
 line the device JSON.  Without a CUDA device, or outside the repository,
 it exits non-zero and prints no result.
 """
@@ -596,6 +624,8 @@ MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
 MODEL_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "ssd": "src/repro/kernels/mamba2_ssd/kernel.py:76",
+    "wkv6": "src/repro/kernels/rwkv6_scan/kernel.py:79",
+    "gmm": "src/repro/kernels/moe_gmm/kernel.py:50",
 }
 #: H100 SXM data sheet, dense: bf16 on the tensor cores, fp32 on the CUDA
 #: cores (the rate of each input type)
@@ -605,6 +635,10 @@ FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: with rtol 2e-2)
 FLASH_TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}
 SSD_TOL = {torch.float32: (8e-5, 2e-2), torch.bfloat16: (8e-2, 2e-2)}
+#: the WKV scan: tests/test_kernels.py's four times (2e-5, 2e-2) with rtol
+#: 2e-2; gmm: (2e-5, 2e-2) times sqrt(D) with rtol 2e-2
+WKV_TOL = SSD_TOL
+GMM_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: model phase and host check: bf16 rounds at other places on the two
 #: paths (kernels vs plain, card vs host), and random weights amplify a
 #: rounding; so a bf16 result must be no further from the plain bf16
@@ -620,6 +654,14 @@ SCORE_BS = (2, 4096)
 PREFILL_BSC = (4, 1024, 2048)
 SERVE_PROMPTS = (8, 24, 40, 64)
 HOST_LAYERS, HOST_BS = 6, (1, 512)
+#: phases 8 to 10: the WKV scan at rwkv6_3b's heads (B, H, hd; S is
+#: SYNTH_S); gmm at qwen3-moe's expert shape (E=128, capacity
+#: C = ceil(8192 tokens x top-8 / 128 x 1.25) = 640 for B=2, S=4096,
+#: D=2048, F=768) and a ragged one; the rwkv6 host check's depth
+WKV_BHD = (2, 40, 64)
+GMM_QWEN3 = (128, 640, 2048, 768)
+GMM_RAGGED = (8, 600, 1000, 700)
+RWKV_HOST_LAYERS = 4
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -686,6 +728,37 @@ def work_ssd(x, dt, A, Bc, Cc, h0=None, chunk=128):
     return fbound(n_bytes, flops, x.dtype)
 
 
+def work_wkv(r, k, v, w, u, s0=None, chunk=32):
+    """Inputs read once, y and S written once.  Operations per chunk of L
+    steps and (batch row, head): the clamped log decay and its sums (5 per
+    element), each kept pair's exponent, product and sum over the channels
+    (5 per channel), the bonus (3 per channel and step), att @ v on and
+    below the diagonal, the decayed r and k (5 per element), r @ S, and the
+    state update with its decay."""
+    B, S, H, hd = r.shape
+    Q = min(chunk, S)
+    flops = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        pairs = L * (L - 1) // 2
+        flops += B * H * (5 * L * hd + 5 * hd * pairs + 3 * L * hd
+                          + 2 * hd * (pairs + L) + 5 * L * hd
+                          + 4 * L * hd * hd + 3 * hd * hd)
+    e = r.element_size()
+    n_bytes = (4 * r.numel() * e + 4 * (w.numel() + u.numel())
+               + 4 * B * H * hd * hd
+               + (s0.numel() * s0.element_size() if s0 is not None else 0))
+    return fbound(n_bytes, flops, r.dtype)
+
+
+def work_gmm(x, w):
+    """x and w read once, y written once; 2 D operations per output."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    n_bytes = x.element_size() * (x.numel() + w.numel() + E * C * F)
+    return fbound(n_bytes, 2 * E * C * D * F, x.dtype)
+
+
 def sdpa_fn(q, k, v, window=None, softcap=None):
     """One ``scaled_dot_product_attention`` call computing the same
     function (a boolean mask for the window, GQA by ``enable_gqa``), or
@@ -706,21 +779,37 @@ def sdpa_fn(q, k, v, window=None, softcap=None):
         qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
 
 
+def model_kernels() -> dict:
+    """name -> (binding module, its attribute, plain version, work
+    counter, tolerance (atol, rtol) of a call's arguments, the library call
+    of those arguments or None)."""
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.mamba2_ssd import kernel as sk, ref as sr
+    from repro_torch.kernels.moe_gmm import kernel as gk, ref as gr
+    from repro_torch.kernels.rwkv6_scan import kernel as wk, ref as wr
+    return {
+        "flash_attention": (
+            fk, "flash_attention_fwd", fr.attention_ref, work_flash,
+            lambda a: FLASH_TOL[a[0].dtype],
+            lambda a, kw: sdpa_fn(*a, window=kw.get("window"),
+                                  softcap=kw.get("softcap"))),
+        "ssd": (sk, "ssd_fwd", sr.ssd_ref, work_ssd,
+                lambda a: SSD_TOL[a[0].dtype], lambda a, kw: None),
+        "wkv6": (wk, "wkv6_fwd", wr.wkv6_ref, work_wkv,
+                 lambda a: WKV_TOL[a[0].dtype], lambda a, kw: None),
+        "gmm": (gk, "gmm", gr.gmm_ref, work_gmm,
+                lambda a: (GMM_ATOL[a[0].dtype] * a[0].shape[-1] ** 0.5,
+                           2e-2),
+                lambda a, kw: (lambda: torch.bmm(a[0], a[1]))),
+    }
+
+
 def model_kernel_row(name, args, kw, tag, reps=10):
     """Kernel vs plain version on one input set: checked within tolerance,
     timed; returns the row's numbers."""
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
-    from repro_torch.kernels.mamba2_ssd import kernel as sk, ref as sr
-    if name == "flash_attention":
-        kern, plain, work = fk.flash_attention_fwd, fr.attention_ref, \
-            work_flash
-        tol = FLASH_TOL[args[0].dtype]
-        lib = sdpa_fn(*args, window=kw.get("window"),
-                      softcap=kw.get("softcap"))
-    else:
-        kern, plain, work = sk.ssd_fwd, sr.ssd_ref, work_ssd
-        tol = SSD_TOL[args[0].dtype]
-        lib = None
+    mod, attr, plain, work, tol_of, lib_of = model_kernels()[name]
+    kern = getattr(mod, attr)
+    tol, lib = tol_of(args), lib_of(args, kw)
     got, want = kern(*args, **kw), plain(*args, **kw)
     torch.cuda.synchronize()
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -740,13 +829,23 @@ def model_kernel_row(name, args, kw, tag, reps=10):
     opts = {k: tuple(v.shape) if torch.is_tensor(v) else v
             for k, v in kw.items() if v is not None}
     log(f"{tag} {name} {str(args[0].dtype)[6:]} {opts} "
-        f"shapes={shapes}: max_abs_err={err:.3g} (atol {tol[0]}, rtol "
+        f"shapes={shapes}: max_abs_err={err:.3g} (atol {tol[0]:.3g}, rtol "
         f"{tol[1]}) ms={ms:.6f} call_ms={call_ms:.6f} "
         f"plain_ms={plain_ms:.6f} library_ms="
         f"{'null' if lib_ms is None else f'{lib_ms:.6f}'} "
         f"bound_ms={b_ms:.6f} ({b_by}; bytes={n_bytes} ops={n_ops})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+def kernel_row(name, rec, launches, tag):
+    """The JSON line's row of a kernel: its launches on the main path,
+    and the numbers of its first main-path call replayed."""
+    args, kw = rec.calls[name]
+    nums = model_kernel_row(name, args, kw, tag)
+    return {"name": name, "route": "cuda", "source": MODEL_SOURCE,
+            "replaces": MODEL_REPLACES[name], "launches": launches[name],
+            **nums}
 
 
 def phase_model_kernels(seed: int, dev) -> None:
@@ -793,24 +892,22 @@ def phase_model_kernels(seed: int, dev) -> None:
 
 
 class KernelWatch:
-    """Wraps the two model kernel bindings: keeps a copy of each one's
-    first call and, with ``check``, holds every launch against the plain
-    version on the same inputs (FLASH_TOL, SSD_TOL) and keeps the largest
-    error of each kernel."""
+    """Wraps the model kernel bindings: keeps a copy of each one's first
+    call and, with ``check``, holds every launch against the plain version
+    on the same inputs (FLASH_TOL, SSD_TOL, WKV_TOL, GMM_ATOL) and keeps
+    the largest error of each kernel."""
 
     def __init__(self, check: bool = False):
-        from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
-        from repro_torch.kernels.mamba2_ssd import kernel as sk, ref as sr
         self.calls, self.checked = {}, {}
-        self._orig = [(fk, "flash_attention_fwd", fk.flash_attention_fwd),
-                      (sk, "ssd_fwd", sk.ssd_fwd)]
-        for (mod, attr, real), name, plain, tol in zip(
-                self._orig, ("flash_attention", "ssd"),
-                (fr.attention_ref, sr.ssd_ref), (FLASH_TOL, SSD_TOL)):
+        self._orig = []
+        for name, (mod, attr, plain, _, tol_of, _) in \
+                model_kernels().items():
+            real = getattr(mod, attr)
+            self._orig.append((mod, attr, real))
             setattr(mod, attr, self._wrap(name, real, plain if check
-                                          else None, tol))
+                                          else None, tol_of))
 
-    def _wrap(self, name, real, plain, tol):
+    def _wrap(self, name, real, plain, tol_of):
         def watched(*args, **kw):
             if name not in self.calls:
                 self.calls[name] = (tuple(
@@ -820,7 +917,7 @@ class KernelWatch:
             got = real(*args, **kw)
             if plain is not None:
                 want = plain(*args, **kw)
-                atol, rtol = tol[args[0].dtype]
+                atol, rtol = tol_of(args)
                 pairs = zip(got, want) if isinstance(got, tuple) \
                     else [(got, want)]
                 n, err = self.checked.get(name, (0, 0.0))
@@ -851,7 +948,7 @@ def checked_run(fn) -> str:
                   for k, (n, e) in watch.checked.items())
 
 
-def zamba_params(cfg, seed: int, dev):
+def model_params(cfg, seed: int, dev):
     from repro_torch.models import init_params, param_specs
     return init_params(param_specs(cfg),
                        torch.Generator(device=dev).manual_seed(seed),
@@ -885,7 +982,7 @@ def phase_model(seed: int, dev) -> tuple:
     from repro_torch.serve import Request, ServeEngine
     cfg = get_config("zamba2_2_7b")
     torch.cuda.reset_peak_memory_stats()
-    params, t_init = timed(lambda: zamba_params(cfg, seed, dev))
+    params, t_init = timed(lambda: model_params(cfg, seed, dev))
     n_apps = cfg.n_layers // cfg.shared_attn_every
     log(f"phase6 zamba2_2_7b: {count_params(param_specs(cfg))} params fp32 "
         f"on the card, {cfg.n_layers} layers, {n_apps} shared-attention "
@@ -927,13 +1024,8 @@ def phase_model(seed: int, dev) -> tuple:
         params, {"tokens": tok}, cfg=cfg, use_kernels=True, device=dev)))
 
     # the kernels on the main path's own first inputs
-    rows = []
-    for name in ("flash_attention", "ssd"):
-        args, kw = rec.calls[name]
-        nums = model_kernel_row(name, args, kw, "phase6 main-path")
-        rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
-                     "replaces": MODEL_REPLACES[name],
-                     "launches": launches[name], **nums})
+    rows = [kernel_row(name, rec, launches, "phase6 main-path")
+            for name in ("flash_attention", "ssd")]
     rec.calls.clear()
     torch.cuda.empty_cache()
 
@@ -989,16 +1081,18 @@ def phase_model(seed: int, dev) -> tuple:
     return rows, params
 
 
-def phase_host(params, seed: int, dev) -> None:
-    """Phase 7: full width, 6 layers (one shared-attention application),
-    the same parameter tensors on the host: the card's kernel path against
-    the host's plain path, and the card's engine against the host's."""
+def phase_host(arch: str, params, n_layers: int, seed: int, dev,
+               tag: str) -> None:
+    """Phases 7 and 10: full width, the first ``n_layers`` layers (for
+    zamba2 6: one shared-attention application), the same parameter
+    tensors on the host: the card's kernel path against the host's plain
+    path, and the card's engine against the host's."""
     from repro_torch.configs import get_config
     from repro_torch.models import forward
     from repro_torch.models.params import tree_map
     from repro_torch.serve import Request, ServeEngine
-    cfg = get_config("zamba2_2_7b").derive(n_layers=HOST_LAYERS)
-    p6 = dict(params, layers=tree_map(lambda a: a[:HOST_LAYERS],
+    cfg = get_config(arch).derive(n_layers=n_layers)
+    p6 = dict(params, layers=tree_map(lambda a: a[:n_layers],
                                       params["layers"]))
     host = tree_map(lambda t: t.cpu(), p6)
     rng = np.random.default_rng(seed + 1)
@@ -1010,10 +1104,9 @@ def phase_host(params, seed: int, dev) -> None:
     t_h = time.perf_counter() - t0
     host_f, _ = forward(host, {"tokens": tok}, cfg=cfg.derive(
         dtype="float32"), device="cpu")
-    log(f"phase7 {HOST_LAYERS} layers B,S={HOST_BS}: card (kernels) "
-        f"wall_s={t_c:.4f}, host "
-        f"(plain) wall_s={t_h:.4f}")
-    log("phase7 " + within_noise("logits, card kernels vs host plain",
+    log(f"{tag} {arch} {n_layers} layers B,S={HOST_BS}: card (kernels) "
+        f"wall_s={t_c:.4f}, host (plain) wall_s={t_h:.4f}")
+    log(f"{tag} " + within_noise("logits, card kernels vs host plain",
                                  card_l, host_l, host_f))
 
     class Recording(ServeEngine):
@@ -1052,8 +1145,207 @@ def phase_host(params, seed: int, dev) -> None:
                             replays["host fp32"][i])
         err = rel_l2(replays["card"][i], want)
         worst = max(worst, (err, line))
-    log(f"phase7 engine: {len(ref.steps)} decode steps, card vs host "
+    log(f"{tag} engine: {len(ref.steps)} decode steps, card vs host "
         f"within noise at every step; worst {worst[1]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8 to 10: the WKV scan and gmm, and the rwkv6 path
+# ---------------------------------------------------------------------------
+
+def phase_new_kernels(seed: int, dev) -> dict:
+    """Phase 8: gmm's own path first, the experts' SwiGLU FFN of one
+    qwen3-moe layer over its capacity buffers (bf16) through
+    ``ops.gmm``, the launch counts set to 0 just before and read just
+    after, every launch held against the plain version; then both new
+    kernels against their plain versions at the synthetic sizes, in bf16
+    and fp32.  Returns gmm's row of the JSON line."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    E, C, D, F = GMM_QWEN3
+    bf16 = torch.bfloat16
+    x = randn(E, C, D, dtype=bf16)
+    wi, wg = (randn(E, D, F, dtype=bf16, scale=D ** -0.5) for _ in range(2))
+    wo = randn(E, F, D, dtype=bf16, scale=F ** -0.5)
+
+    def expert_ffn():
+        a, gate = gmm_ops.gmm(x, wi), gmm_ops.gmm(x, wg)
+        return gmm_ops.gmm(Fn.silu(gate) * a, wo)
+
+    rec = KernelWatch()
+    reset_launch_counts()
+    y, t = timed(expert_ffn)
+    launches = launch_counts()
+    rec.restore()
+    others = {k: n for k, n in launches.items() if n and k != "gmm"}
+    if launches["gmm"] != 3 or others:
+        raise AssertionError(f"expert FFN launched {launches}")
+    if y.shape != (E, C, D) or not bool(torch.isfinite(y.float()).all()):
+        raise AssertionError("expert FFN: bad output")
+    log(f"phase8 qwen3-moe expert FFN E={E} C={C} D={D} F={F} bf16 through "
+        f"ops.gmm: wall_s={t:.4f} launches={json.dumps(launches)}")
+    log("phase8 expert FFN again, " + checked_run(expert_ffn))
+    row = kernel_row("gmm", rec, launches, "phase8 main-path")
+    rec.calls.clear()
+    del x, wi, wg, wo, y
+    torch.cuda.empty_cache()
+
+    B, H, hd = WKV_BHD
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, v = (randn(B, SYNTH_S, H, hd, dtype=dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, SYNTH_S, H, hd) * 0.5))
+        u = randn(H, hd, scale=0.1)
+        s0 = randn(B, H, hd, hd)
+        for st in (None, s0):
+            model_kernel_row("wkv6", (r, k, v, w, u), dict(s0=st, chunk=32),
+                             "phase8")
+        cut = tuple(t[:, :RAGGED_S].contiguous() for t in (r, k, v, w))
+        model_kernel_row("wkv6", cut + (u,), dict(s0=s0, chunk=32),
+                         "phase8 ragged")
+        model_kernel_row("wkv6", (r, k, v, torch.full_like(w, 1e-45),
+                                  torch.ones_like(u)),
+                         dict(s0=None, chunk=32), "phase8 strong-decay")
+        del r, k, v, w, cut
+        for shape, tag in ((GMM_QWEN3, "phase8"),
+                           (GMM_RAGGED, "phase8 ragged")):
+            E, C, D, F = shape
+            model_kernel_row("gmm", (randn(E, C, D, dtype=dtype),
+                                     randn(E, D, F, dtype=dtype)), {}, tag)
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_rwkv(seed: int, dev) -> tuple:
+    """Phase 9: the full rwkv6_3b on the card.  Returns the WKV row of
+    the JSON line (launches from the scoring forward, the main path; times
+    and errors on its own first inputs) and the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import count_params, forward, param_specs
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("rwkv6_3b")
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: model_params(cfg, seed, dev))
+    log(f"phase9 rwkv6_3b: {count_params(param_specs(cfg))} params fp32 "
+        f"on the card, {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+        f"init_s={t_init:.3f}")
+    rng = np.random.default_rng(seed + 9)
+    want = {"wkv6": cfg.n_layers, "flash_attention": 0, "ssd": 0, "gmm": 0}
+
+    def path_launches(what):
+        got = {k: launch_counts()[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{what} launched {got}, want {want}")
+        return got
+
+    # 1. scoring forward, B=2, S=4096
+    tok = rng.integers(0, cfg.vocab_size, SCORE_BS).astype(np.int32)
+    rec = KernelWatch()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    (lk, _), t_k = timed(lambda: forward(params, {"tokens": tok}, cfg=cfg,
+                                         use_kernels=True, device=dev))
+    launches = launch_counts()
+    rec.restore()
+    peak_k = torch.cuda.max_memory_allocated()
+    log(f"phase9 scoring forward B,S={SCORE_BS} use_kernels=True: "
+        f"wall_s={t_k:.4f} launches={json.dumps(launches)} "
+        f"peak_device_bytes={peak_k}")
+    path_launches("scoring forward")
+    reset_launch_counts()
+    (lp, _), t_p = timed(lambda: forward(params, {"tokens": tok}, cfg=cfg,
+                                         use_kernels=False, device=dev))
+    (lf, _), t_f = timed(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg.derive(dtype="float32"),
+        use_kernels=False, device=dev))
+    if any(launch_counts().values()):
+        raise AssertionError("the plain path launched a kernel")
+    log(f"phase9 plain forward bf16 wall_s={t_p:.4f}, fp32 wall_s="
+        f"{t_f:.4f}")
+    log("phase9 " + within_noise("scoring logits, kernels vs plain",
+                                 lk, lp, lf)
+        + f" argmax_agree={float((lk.argmax(-1) == lp.argmax(-1)).float().mean()):.4f}")
+    del lk, lp, lf
+    log("phase9 scoring forward again, " + checked_run(lambda: forward(
+        params, {"tokens": tok}, cfg=cfg, use_kernels=True, device=dev)))
+    rows = [kernel_row("wkv6", rec, launches, "phase9 main-path")]
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+
+    # 2. a cache-filling prefill in two segments, B=4: S=1024 from the
+    # engine's zero cache, then S=1024 more from the returned cache (the
+    # kernel with a nonzero initial state)
+    B, S, slots = PREFILL_BSC
+    tok = rng.integers(0, cfg.vocab_size, (B, 2 * S)).astype(np.int32)
+    segs = (tok[:, :S], tok[:, S:])
+
+    def prefill(c, use_kernels, cache1=None):
+        """(logits, cache) of the second segment; the first segment's
+        cache is taken as given, or made here."""
+        if cache1 is None:
+            _, cache1 = forward(params, {"tokens": segs[0]}, cfg=c,
+                                use_kernels=use_kernels, device=dev,
+                                cache=engine_cache(c, B, slots, dev))
+        return forward(params, {"tokens": segs[1]}, cfg=c,
+                       use_kernels=use_kernels, device=dev, cache=cache1)
+
+    reset_launch_counts()
+    (_, c1), t_1 = timed(lambda: forward(
+        params, {"tokens": segs[0]}, cfg=cfg, use_kernels=True, device=dev,
+        cache=engine_cache(cfg, B, slots, dev)))
+    path_launches("prefill segment 1")
+    reset_launch_counts()
+    (lk, ck), t_2 = timed(lambda: prefill(cfg, True, c1))
+    got = path_launches("prefill segment 2")
+    s0_max = float(c1["wkv"].abs().max())
+    if not s0_max > 0:
+        raise AssertionError("segment 2 started from a zero state")
+    (lp, cp), t_p = timed(lambda: prefill(cfg, False))
+    lf, cf = prefill(cfg.derive(dtype="float32"), False)
+    log(f"phase9 prefill B={B} S={S}+{S}: kernels wall_s={t_1:.4f}+"
+        f"{t_2:.4f} launches per segment={json.dumps(got)} (segment 2 from "
+        f"a state of max |wkv| {s0_max:.4g}); plain wall_s={t_p:.4f} for "
+        f"both")
+    log("phase9 " + within_noise("prefill segment 2 logits", lk, lp, lf))
+    for key in ck:
+        log("phase9 " + within_noise(
+            f"prefill cache {key} {tuple(ck[key].shape)} "
+            f"{str(ck[key].dtype)[6:]}", ck[key], cp[key], cf[key]))
+    log("phase9 prefill segment 2 again, " + checked_run(
+        lambda: prefill(cfg, True, c1)))
+    del lk, ck, lp, cp, lf, cf, c1
+    torch.cuda.empty_cache()
+
+    # 3. the serving engine
+    eng = ServeEngine(cfg, params, max_batch=4, max_seq=256, device=dev)
+    lens = SERVE_PROMPTS
+    for i, n in enumerate(lens):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new=16))
+    reset_launch_counts()
+    done, t_serve = timed(lambda: eng.run(max_iters=64))
+    gen = {r.rid: r.generated for r in done}
+    if sorted(gen) != list(range(len(lens))) or any(
+            len(g) != 16 or not all(0 <= t < cfg.vocab_size for t in g)
+            for g in gen.values()):
+        raise AssertionError(f"serving engine: {gen}")
+    steps = sum(lens) + 16
+    log(f"phase9 serve: max_batch=4 max_seq=256, prompts {lens}, max_new=16:"
+        f" wall_s={t_serve:.4f} decode_steps={steps} ms_per_decode_step="
+        f"{1e3 * t_serve / steps:.3f} "
+        f"launches={json.dumps(launch_counts())} (the decode branch runs no "
+        f"kernel) tokens={json.dumps(gen)}")
+    log(f"phase9 peak_device_bytes={torch.cuda.max_memory_allocated()}")
+    del eng
+    return rows, params
 
 
 def main() -> int:
@@ -1198,10 +1490,25 @@ def main() -> int:
     model_rows, params = phase_model(args.seed, dev)
     rows += model_rows
     t7 = time.perf_counter()
-    phase_host(params, args.seed, dev)
+    phase_host("zamba2_2_7b", params, HOST_LAYERS, args.seed, dev, "phase7")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- phases 8 to 10 ----------------------------------------------------
+    t8 = time.perf_counter()
+    gmm_row = phase_new_kernels(args.seed, dev)
+    t9 = time.perf_counter()
+    wkv_rows, params = phase_rwkv(args.seed, dev)
+    rows += wkv_rows + [gmm_row]
+    t10 = time.perf_counter()
+    phase_host("rwkv6_3b", params, RWKV_HOST_LAYERS, args.seed, dev,
+               "phase10")
+    del params
+    t_end = time.perf_counter()
     log(f"phase5_s={t6 - t5:.1f} phase6_s={t7 - t6:.1f} "
-        f"phase7_s={time.perf_counter() - t7:.1f}")
-    log(f"total_s={time.perf_counter() - t_start:.1f}")
+        f"phase7_s={t8 - t7:.1f} phase8_s={t9 - t8:.1f} "
+        f"phase9_s={t10 - t9:.1f} phase10_s={t_end - t10:.1f}")
+    log(f"total_s={t_end - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

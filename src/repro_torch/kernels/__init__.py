@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels: the metadata plane's integer hot paths
 (``phash``, ``pkval``, ``hintchain``, ``treeagg``) and the model stack's
-float ones (``flash_attention``, ``mamba2_ssd``).
+float ones (``flash_attention``, ``mamba2_ssd``, ``rwkv6_scan``,
+``moe_gmm``).
 
 Each family package holds ``kernel.py`` (the binding of the CUDA kernel in
 ``csrc/``), ``ref.py`` (the plain PyTorch version of the same function) and
@@ -18,7 +19,8 @@ from typing import Dict
 #: CUDA launches per kernel since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"phash": 0, "phash_chain": 0, "pkval": 0,
                             "hintchain": 0, "treeagg": 0,
-                            "flash_attention": 0, "ssd": 0}
+                            "flash_attention": 0, "ssd": 0, "wkv6": 0,
+                            "gmm": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,25 +1,31 @@
 // Hand-written Hopper (sm_90a) kernels for the model stack's float hot
-// paths: causal / sliding-window / softcapped GQA flash attention and the
-// Mamba2 chunked SSD scan.  They replace the Pallas TPU kernels
+// paths: causal / sliding-window / softcapped GQA flash attention, the
+// Mamba2 chunked SSD scan, the RWKV-6 chunked WKV scan and the grouped
+// expert matmul.  They replace the Pallas TPU kernels
 //
 //   flash_attention  repro/kernels/flash_attention/kernel.py  flash_attention_fwd
 //   ssd              repro/kernels/mamba2_ssd/kernel.py       ssd_fwd
+//   wkv6             repro/kernels/rwkv6_scan/kernel.py       wkv6_fwd
+//   gmm              repro/kernels/moe_gmm/kernel.py          gmm
 //
 // and compute the same functions in fp32 arithmetic on bf16 or fp32 inputs.
 // Tensors keep the model's layouts (q [B,S,H,hd], k/v [B,S,KV,hd],
-// x [B,S,H,hd], dt [B,S,H], B/C [B,S,N]); the kernels index them with
-// their own strides, so nothing is transposed or padded on the host and
-// any sequence length S is taken (the TPU kernels needed S a multiple of
-// their block).
+// x [B,S,H,hd], dt [B,S,H], B/C [B,S,N], r/k/v/w [B,S,H,hd],
+// x [E,C,D] and w [E,D,F] for gmm); the kernels index them with their own
+// strides, so nothing is transposed or padded on the host and any
+// sequence length S (any C, D, F) is taken (the TPU kernels needed S a
+// multiple of their block).
 //
-// What bounds them on this card, at zamba2's shapes (S=4096): causal
-// attention does ~S/2 operations per byte of q, k and v, far above the
-// H100's bf16 ridge (~295), so it is bound by arithmetic; the SSD scan does
-// ~94 per byte, below the ridge, so its bound is the bytes it moves.  This
-// first version runs both on the fp32 CUDA cores (67 TFLOP/s peak, against
-// 989 for bf16 on the tensor cores), with tiles staged in shared memory and
-// the sums kept in registers, so device memory is read once per tile; both
-// sit far above their bounds.  wgmma and TMA are for a later version.
+// What bounds them on this card, at the main paths' shapes (S=4096):
+// causal attention does ~S/2 operations per byte of q, k and v, far above
+// the H100's bf16 ridge (~295), so it is bound by arithmetic; the SSD scan
+// does ~94 per byte and the WKV scan ~30, below the ridge, so their bound
+// is the bytes they move; gmm at qwen3-moe's expert shape sits at the
+// ridge.  This first version runs all four on the fp32 CUDA cores (67
+// TFLOP/s peak, against 989 for bf16 on the tensor cores), with tiles
+// staged in shared memory and the sums kept in registers, so device memory
+// is read once per tile; all sit far above their bounds.  wgmma and TMA
+// are for a later version.
 //
 // Plain C interface (loaded with ctypes): each launcher takes device
 // pointers, sizes and the CUDA stream to launch on, and returns the
@@ -542,6 +548,304 @@ int ssd_dispatch(const void* x, const void* dt, const void* A, const void* Bm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// RWKV-6 chunked WKV scan
+// ---------------------------------------------------------------------------
+//
+// One block per (b, h); it walks the chunks of Q <= 32 steps in order with
+// the state S [hd, hd] in fp32 shared memory (the TPU kernel's sequential
+// chunk grid dimension becomes this loop).  Per chunk, as _wkv_kernel does:
+//
+//   lw       = max(log(max(w, 1e-30)), -60)         (clamped log decay)
+//   cum_t    = sum_{s<=t} lw_s,  cum_prev_t = cum_t - lw_t
+//   att[t,s] = sum_c r_tc k_sc exp(cum_prev_tc - cum_sc)   for s < t
+//   att[t,t] = sum_c r_tc u_c k_tc                          (the bonus)
+//   y        = att @ v + (r exp(cum_prev)) @ S
+//   S'       = S exp(cum_L) + (k exp(cum_L - cum))^T @ v
+//
+// The exponent of every pair that is kept is <= 0, and the pairs that are
+// not are never exponentiated, so strong decay stays finite.  The TPU
+// kernel builds the [Q, Q, hd] tensor of exponentials (256 KB at hd=64,
+// beyond a block's shared memory here); this kernel sums each att entry
+// over the channels in a register instead.  The chunk's r, k, v, cum and
+// cum_prev are staged as fp32 with a padded row stride (hd + 1: the
+// threads of a warp read different rows of one column without bank
+// conflicts): 62,336 bytes at hd=64.  Rows past the end of the sequence
+// are staged as zeros with lw = 0: no decay and nothing added, so a ragged
+// last chunk computes the same function.
+
+constexpr int kWkvThreads = 256;
+constexpr int kWkvQ = 32;
+
+__host__ __device__ constexpr int wkv_smem_floats(int hd) {
+  return 4 * kWkvQ * (hd + 1) + kWkvQ * hd + kWkvQ * (kWkvQ + 1) + hd * hd +
+         hd;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWkvThreads)
+wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, const void* __restrict__ s0,
+                int s0_kind, T* __restrict__ y, float* __restrict__ sout,
+                int S, int H, int Q) {
+  constexpr int RP = HD + 1;                // padded row stride
+  constexpr int AP = kWkvQ + 1;             // att row stride
+  constexpr int NG = kWkvThreads / HD;      // row groups (y, state update)
+  constexpr int RQ = kWkvQ / NG;            // y rows per thread
+  constexpr int RC = HD / NG;               // state rows per thread
+  extern __shared__ float sm[];
+  float* rs = sm;                           // [Q][RP] r, then r e^cum_prev
+  float* ks = rs + kWkvQ * RP;              // [Q][RP] k, then k e^(cum_L-cum)
+  float* cs = ks + kWkvQ * RP;              // [Q][RP] cum
+  float* ps = cs + kWkvQ * RP;              // [Q][RP] lw, then cum_prev
+  float* vs = ps + kWkvQ * RP;              // [Q][HD]
+  float* as = vs + kWkvQ * HD;              // [Q][AP] att
+  float* ss = as + kWkvQ * AP;              // [HD][HD] the state
+  float* us = ss + HD * HD;                 // [HD] the bonus
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const long long step = (long long)H * HD;          // one time step
+  const long long base = ((long long)b * S * H + h) * HD;
+  const long long sbase = (long long)bh * HD * HD;
+
+  for (int i = tid; i < HD * HD; i += kWkvThreads) {
+    float s = 0.f;
+    if (s0_kind == 1)
+      s = static_cast<const float*>(s0)[sbase + i];
+    else if (s0_kind == 2)
+      s = __bfloat162float(static_cast<const __nv_bfloat16*>(s0)[sbase + i]);
+    ss[i] = s;
+  }
+  for (int i = tid; i < HD; i += kWkvThreads) us[i] = u[h * HD + i];
+
+  for (int c0 = 0; c0 < S; c0 += Q) {
+    const int L = min(Q, S - c0);
+    __syncthreads();                        // the last chunk's readers are done
+    for (int idx = tid; idx < kWkvQ * HD; idx += kWkvThreads) {
+      const int t = idx / HD, c = idx - t * HD;
+      const bool in = t < L;
+      const long long g = base + (c0 + t) * step + c;
+      rs[t * RP + c] = in ? to_f(r[g]) : 0.f;
+      ks[t * RP + c] = in ? to_f(k[g]) : 0.f;
+      vs[idx] = in ? to_f(v[g]) : 0.f;
+      ps[t * RP + c] = in ? fmaxf(logf(fmaxf(w[g], 1e-30f)), -60.f) : 0.f;
+    }
+    __syncthreads();
+
+    // cum and cum_prev per channel, summed in order and rounded as the
+    // plain version rounds them (cum_prev = cum - lw, not cum_{t-1}):
+    // exp(cum_prev_t - cum_s) turns their rounding into relative errors
+    for (int c = tid; c < HD; c += kWkvThreads) {
+      float run = 0.f;
+      for (int t = 0; t < kWkvQ; ++t) {
+        const float lw = ps[t * RP + c];
+        run = __fadd_rn(run, lw);
+        cs[t * RP + c] = run;
+        ps[t * RP + c] = __fsub_rn(run, lw);
+      }
+    }
+    __syncthreads();
+
+    // att: thread (t = tid / 8) and s = tid % 8 + 8 j, summed over c
+    {
+      const int t = tid / 8, lane = tid % 8;
+      const float* rt = rs + t * RP;
+      const float* pt = ps + t * RP;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = lane + 8 * j;
+        const float* kr = ks + s * RP;
+        const float* cr = cs + s * RP;
+        float a = 0.f;
+        if (s < t) {
+          for (int c = 0; c < HD; ++c)
+            a = fmaf(rt[c] * kr[c], expf(pt[c] - cr[c]), a);
+        } else if (s == t) {
+          for (int c = 0; c < HD; ++c) a = fmaf(rt[c] * us[c], kr[c], a);
+        }
+        as[t * AP + s] = a;
+      }
+    }
+    __syncthreads();
+
+    // r e^cum_prev and k e^(cum_L - cum), in place (cum_L: the last row,
+    // which padded rows carry unchanged)
+    for (int idx = tid; idx < kWkvQ * HD; idx += kWkvThreads) {
+      const int t = idx / HD, c = idx - t * HD;
+      const float cl = cs[(kWkvQ - 1) * RP + c];
+      rs[t * RP + c] *= expf(ps[t * RP + c]);
+      ks[t * RP + c] *= expf(cl - cs[t * RP + c]);
+    }
+    __syncthreads();
+
+    // y = att @ v + (r e^cum_prev) @ S; thread rows t = tg + NG i, column d
+    {
+      const int d = tid % HD, tg = tid / HD;
+      float acc[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) acc[i] = 0.f;
+      for (int s = 0; s < kWkvQ; ++s) {
+        const float vv = vs[s * HD + d];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+          acc[i] = fmaf(as[(tg + NG * i) * AP + s], vv, acc[i]);
+      }
+      for (int c = 0; c < HD; ++c) {
+        const float sv = ss[c * HD + d];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+          acc[i] = fmaf(rs[(tg + NG * i) * RP + c], sv, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const int t = tg + NG * i;
+        if (t < L) y[base + (c0 + t) * step + d] = from_f<T>(acc[i]);
+      }
+    }
+    __syncthreads();
+
+    // S' = S e^cum_L + (k e^(cum_L - cum))^T @ v; thread rows c = cg + NG i,
+    // column d
+    {
+      const int d = tid % HD, cg = tid / HD;
+      float acc[RC];
+#pragma unroll
+      for (int i = 0; i < RC; ++i) acc[i] = 0.f;
+      for (int s = 0; s < kWkvQ; ++s) {
+        const float vv = vs[s * HD + d];
+#pragma unroll
+        for (int i = 0; i < RC; ++i)
+          acc[i] = fmaf(ks[s * RP + cg + NG * i], vv, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        const int c = cg + NG * i;
+        const float decay = expf(cs[(kWkvQ - 1) * RP + c]);
+        ss[c * HD + d] = fmaf(ss[c * HD + d], decay, acc[i]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < HD * HD; i += kWkvThreads) sout[sbase + i] = ss[i];
+}
+
+template <typename T, int HD>
+int wkv6_launch_t(const void* r, const void* k, const void* v, const void* w,
+                  const void* u, const void* s0, int s0_kind, void* y,
+                  void* s, int B, int S, int H, int Q, cudaStream_t stream) {
+  const int smem = wkv_smem_floats(HD) * (int)sizeof(float);
+  auto kern = wkv6_fwd_kernel<T, HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<B * H, kWkvThreads, smem, stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, (const float*)w,
+      (const float*)u, s0, s0_kind, (T*)y, (float*)s, S, H, Q);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wkv6_dispatch(const void* r, const void* k, const void* v, const void* w,
+                  const void* u, const void* s0, int s0_kind, void* y,
+                  void* s, int B, int S, int H, int hd, int Q,
+                  cudaStream_t st) {
+  switch (hd) {
+    case 16: return wkv6_launch_t<T, 16>(r, k, v, w, u, s0, s0_kind, y, s, B,
+                                         S, H, Q, st);
+    case 32: return wkv6_launch_t<T, 32>(r, k, v, w, u, s0, s0_kind, y, s, B,
+                                         S, H, Q, st);
+    case 64: return wkv6_launch_t<T, 64>(r, k, v, w, u, s0, s0_kind, y, s, B,
+                                         S, H, Q, st);
+    case 128: return wkv6_launch_t<T, 128>(r, k, v, w, u, s0, s0_kind, y, s,
+                                           B, S, H, Q, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// grouped expert matmul
+// ---------------------------------------------------------------------------
+//
+// y[e] = x[e] @ w[e].  One block of 256 threads per (128-column tile of F,
+// 128-row tile of C, expert e), as the TPU kernel's (E, C/bc, F/bf) grid;
+// its sequential D axis becomes the loop over tiles of 8.  Per D tile the
+// x tile (transposed, [k][m]) and the w tile ([k][n]) are staged in shared
+// memory as fp32; each thread keeps an 8 x 8 register tile of the fp32
+// sums (rows ty + 16 i, columns tx + 16 j: a warp reads 2 rows of A, by
+// broadcast, and 16 neighbouring columns of B).  Edge tiles are read as
+// zeros and not written, so any C, D and F are taken.
+
+constexpr int kGmmThreads = 256;
+constexpr int kGBM = 128, kGBN = 128, kGBK = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kGmmThreads)
+gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+           T* __restrict__ y, int C, int D, int F) {
+  __shared__ float as[kGBK][kGBM + 4];
+  __shared__ float bs[kGBK][kGBN];
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * kGBM, n0 = blockIdx.x * kGBN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const T* xe = x + (long long)e * C * D;
+  const T* we = w + (long long)e * D * F;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < D; k0 += kGBK) {
+    for (int idx = tid; idx < kGBM * kGBK; idx += kGmmThreads) {
+      const int m = idx / kGBK, kk = idx % kGBK;
+      const int gm = m0 + m, gk = k0 + kk;
+      as[kk][m] = (gm < C && gk < D) ? to_f(xe[(long long)gm * D + gk]) : 0.f;
+    }
+    for (int idx = tid; idx < kGBK * kGBN; idx += kGmmThreads) {
+      const int kk = idx / kGBN, n = idx % kGBN;
+      const int gk = k0 + kk, gn = n0 + n;
+      bs[kk][n] = (gk < D && gn < F) ? to_f(we[(long long)gk * F + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGBK; ++kk) {
+      float a[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= C) continue;
+    T* yr = y + ((long long)e * C + gm) * F;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn < F) yr[gn] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+int gmm_launch_t(const void* x, const void* w, void* y, int E, int C, int D,
+                 int F, cudaStream_t stream) {
+  const dim3 grid((F + kGBN - 1) / kGBN, (C + kGBM - 1) / kGBM, E);
+  gmm_kernel<T><<<grid, kGmmThreads, 0, stream>>>(
+      (const T*)x, (const T*)w, (T*)y, C, D, F);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -575,6 +879,34 @@ int ssd_launch(const void* x, const void* dt, const void* A, const void* Bm,
                                             H, hd, N, Q, st)
               : ssd_dispatch<float>(x, dt, A, Bm, Cm, h0, y, h, B, S, H, hd,
                                     N, Q, st);
+}
+
+// r/k/v [B,S,H,hd] and y bf16 (bf16 != 0) or fp32; w [B,S,H,hd], u [H,hd]
+// and s [B,H,hd,hd] fp32; s0 [B,H,hd,hd] null (s0_kind 0: zeros), fp32
+// (1) or bf16 (2).  Chunks of Q <= 32 steps.
+int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
+                const void* u, const void* s0, void* y, void* s, int B, int S,
+                int H, int hd, int Q, int bf16, int s0_kind, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (Q < 1 || Q > kWkvQ || s0_kind < 0 || s0_kind > 2 ||
+      (s0_kind != 0 && s0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? wkv6_dispatch<__nv_bfloat16>(r, k, v, w, u, s0, s0_kind, y,
+                                             s, B, S, H, hd, Q, st)
+              : wkv6_dispatch<float>(r, k, v, w, u, s0, s0_kind, y, s, B, S,
+                                     H, hd, Q, st);
+}
+
+// x [E,C,D], w [E,D,F], y [E,C,F], all bf16 (bf16 != 0) or fp32.
+int gmm_launch(const void* x, const void* w, void* y, int E, int C, int D,
+               int F, int bf16, void* stream) {
+  if (E <= 0 || C <= 0 || F <= 0) return 0;
+  if (E > 65535 || (C + kGBM - 1) / kGBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? gmm_launch_t<__nv_bfloat16>(x, w, y, E, C, D, F, st)
+              : gmm_launch_t<float>(x, w, y, E, C, D, F, st);
 }
 
 }  // extern "C"

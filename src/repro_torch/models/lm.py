@@ -1,12 +1,13 @@
 """Model assembly: the JAX package's ``repro.models.lm`` in PyTorch, as far
 as the port has come.
 
-Ported family:
+Ported families:
   hybrid            — zamba2: Mamba2 backbone + a SHARED attention block
         applied every `shared_attn_every` layers (own KV slot per
         application).
+  ssm               — rwkv6: attention-free WKV blocks.
 
-The other families (dense / moe / vlm, ssm, encdec) raise
+The other families (dense / moe / vlm, encdec) raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 Interface (pure functions, the reference's names and parameter trees):
@@ -31,10 +32,10 @@ from .layers import (apply_norm, attention_block, attn_specs, embed,
                      embed_specs, lm_head, mlp_block, mlp_specs, norm_specs)
 from .mamba2 import mamba2_block, mamba2_specs
 from .params import ParamSpec, tree_map
+from .rwkv6 import rwkv6_att, rwkv6_ffn, rwkv6_specs
 
 #: where each family not yet ported stands in ROADMAP.md
 _NOT_PORTED = {
-    "ssm": "ROADMAP.md queue 2 item 3: rwkv6_3b with the wkv6_fwd kernel",
     "dense": "ROADMAP.md queue 1 item 4: the model stack's other families",
     "moe": "ROADMAP.md queue 1 item 4: the model stack's other families",
     "vlm": "ROADMAP.md queue 1 item 4: the model stack's other families",
@@ -42,8 +43,8 @@ _NOT_PORTED = {
 }
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("hybrid", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"{_NOT_PORTED.get(cfg.family, _NOT_PORTED['dense'])}")
@@ -68,14 +69,28 @@ def layer_flags(cfg: ModelConfig) -> np.ndarray:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_hybrid(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return _rwkv_param_specs(cfg)
     return _hybrid_param_specs(cfg)
 
 
 def init_cache_specs(cfg: ModelConfig, B: int, S_max: int) -> Any:
     """KV-cache / state trees as ParamSpecs (zeros init)."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     d = cfg.d_model
+    if cfg.family == "ssm":
+        H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        L = cfg.n_layers
+        return {"wkv": ParamSpec((L, B, H, hd, hd),
+                                 ("layers", "batch", "heads", None, None),
+                                 "zeros"),
+                "shift_a": ParamSpec((L, B, 1, d),
+                                     ("layers", "batch", None, "act_embed"),
+                                     "zeros"),
+                "shift_f": ParamSpec((L, B, 1, d),
+                                     ("layers", "batch", None, "act_embed"),
+                                     "zeros")}
     d_in = cfg.ssm_expand * d
     H = cfg.ssm_heads or max(1, d_in // 64)
     hd = d_in // H
@@ -105,17 +120,65 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
     Runs on the card unless ``device="cpu"`` is asked for; the parameters
     (and the cache) must already be there, the tokens are moved there.
     ``use_kernels`` is the reference's ``use_pallas``: prefill and scoring
-    run the flash-attention and SSD kernels (their plain versions on the
-    CPU)."""
-    _require_hybrid(cfg)
+    run the flash-attention and SSD kernels (zamba2) or the WKV kernel
+    (rwkv6), their plain versions on the CPU."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     where = params["embed"]["tok"].device
     if where.type != dev.type:
         raise ValueError(f"forward on {dev}: the parameters are on {where}")
     tokens = torch.as_tensor(batch["tokens"], device=where)
-    return _hybrid_forward(params, {**batch, "tokens": tokens}, cfg=cfg,
+    fwd = _rwkv_forward if cfg.family == "ssm" else _hybrid_forward
+    return fwd(params, {**batch, "tokens": tokens}, cfg=cfg,
                            policy=policy, mesh=mesh, cache=cache,
                            cache_index=cache_index, use_kernels=use_kernels)
+
+
+# ===========================================================================
+# rwkv6 (ssm family)
+# ===========================================================================
+
+
+def _rwkv_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    per_layer = dict(rwkv6_specs(cfg))
+    per_layer["ln1"] = norm_specs(cfg)
+    per_layer["ln2"] = norm_specs(cfg)
+    return {"embed": embed_specs(cfg),
+            "layers": _stack(per_layer, cfg.n_layers),
+            "ln_f": norm_specs(cfg)}
+
+
+def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
+                  cache_index=None, use_kernels=False):
+    """The reference's ``_rwkv_forward``; its norms are ``rmsnorm`` with
+    the layernorm's ``scale`` (see ``models/rwkv6.py``)."""
+    from .layers import rmsnorm
+    tokens = batch["tokens"]
+    dtype = getattr(torch, cfg.dtype)
+    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    decode = cache_index is not None
+    stateful = cache is not None or decode
+    new = {"wkv": [], "shift_a": [], "shift_f": []}
+    for i in range(cfg.n_layers):
+        lp = tree_map(lambda a, i=i: a[i], params["layers"])
+        st = {key: cache[key][i] for key in new} if stateful else None
+        h = rmsnorm(x, lp["ln1"]["scale"], cfg.norm_eps)
+        a, st_a = rwkv6_att(lp["att"], h, cfg=cfg, policy=policy, mesh=mesh,
+                            state=st, decode=decode, use_kernels=use_kernels)
+        x = x + a
+        h2 = rmsnorm(x, lp["ln2"]["scale"], cfg.norm_eps)
+        f, new_sf = rwkv6_ffn(lp["ffn"], h2, cfg=cfg, policy=policy,
+                              mesh=mesh, state=st)
+        x = x + f
+        if stateful:
+            new["wkv"].append(st_a["wkv"])
+            new["shift_a"].append(st_a["shift_a"])
+            new["shift_f"].append(new_sf)
+    new_cache = {key: torch.stack(v) for key, v in new.items()} \
+        if stateful else None
+    x = rmsnorm(x, params["ln_f"]["scale"], cfg.norm_eps)
+    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
+    return logits, new_cache
 
 
 # ===========================================================================

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, the integer ones held bit-equal
-and the float ones (flash attention, the SSD scan) within the tolerances
-of ``tests/test_kernels.py`` against their plain PyTorch versions, and the
+and the float ones (flash attention, the SSD scan, the WKV scan, the
+grouped matmul) within the tolerances of ``tests/test_kernels.py`` against
+their plain PyTorch versions, and the
 planned request path run on the card against the same path on the CPU.
 Needs an NVIDIA card of compute capability 9.0 and ``nvcc``; skipped
 elsewhere:
@@ -21,6 +22,12 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm import ref as gmm_ref
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.kernels.hintchain import kernel as hc_kernel
 from repro_torch.kernels.hintchain import ref as hc_ref
 from repro_torch.kernels.phash import kernel as ph_kernel
@@ -298,3 +305,158 @@ def test_model_kernels_refuse_what_they_do_not_take(cuda):
         ssd_kernel.ssd_fwd(x, dt, A, bc, bc, chunk=0)
     with pytest.raises(ValueError, match="one dtype"):
         ssd_kernel.ssd_fwd(x, dt, A, bc.bfloat16(), bc.bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# the WKV scan and the grouped matmul (tests/test_kernels.py's tolerances:
+# WKV atol 4 x (2e-5 fp32, 2e-2 bf16) with rtol 2e-2; gmm atol
+# (2e-5, 2e-2) x sqrt(D) with rtol 2e-2)
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(B, S, H, hd, cuda, dtype=torch.float32, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, hd, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, hd, generator=g) * 0.5)
+                  ).to(cuda)
+    u = (torch.randn(H, hd, generator=g) * 0.1).to(cuda)
+    s0 = torch.randn(B, H, hd, hd, generator=g).to(cuda)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk", [
+    (2, 128, 3, 16, 32),
+    (1, 40, 2, 64, 32),                   # ragged: chunks of 32 and 8
+    (2, 1000, 4, 64, 32),                 # ragged
+    (1, 96, 2, 32, 16),
+    (1, 65, 2, 128, 32),
+    (1, 7, 1, 64, 32),                    # one short chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s0_dtype", [None, torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, chunk, dtype,
+                                   s0_dtype):
+    r, k, v, w, u, s0 = _wkv_inputs(B, S, H, hd, cuda, dtype, seed=S + hd)
+    s0 = None if s0_dtype is None else s0.to(s0_dtype)
+    reset_launch_counts()
+    y, s = wkv_ops.wkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6"] == 1
+    y2, s2 = wkv_ref.wkv6_ref(r, k, v, w, u, s0=s0, chunk=chunk)
+    atol = 4 * FLASH_ATOL[dtype]
+    assert y.dtype == dtype and s.dtype == torch.float32
+    _close(y, y2, atol, 2e-2)
+    _close(s, s2, atol, 2e-2)
+
+
+def test_wkv6_kernel_strong_decay_is_finite(cuda):
+    r, k, v, _, _, _ = _wkv_inputs(1, 64, 2, 64, cuda, seed=3)
+    w = torch.full_like(r, 1e-45)
+    u = torch.ones(2, 64, device=cuda)
+    y, s = wkv_kernel.wkv6_fwd(r, k, v, w, u)
+    y2, s2 = wkv_ref.wkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    _close(y, y2, 4 * FLASH_ATOL[torch.float32], 2e-2)
+    _close(s, s2, 4 * FLASH_ATOL[torch.float32], 2e-2)
+
+
+def _wkv_fp64(r, k, v, w, u):
+    """The per-step recurrence in float64, as a yardstick of both fp32
+    versions."""
+    r, k, v, w, u = (t.double() for t in (r, k, v, w, u))
+    B, S, H, hd = r.shape
+    s = torch.zeros(B, H, hd, hd, dtype=torch.float64, device=r.device)
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        ys.append(torch.einsum("bhc,bhcd->bhd", rt, s)
+                  + (rt * u * kt).sum(-1, keepdim=True) * vt)
+        s = s * wt[..., None] + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(ys, 1), s
+
+
+def test_wkv6_kernel_as_accurate_as_plain(cuda):
+    """Slow decay over long chunks makes |cum| large: exp(cum_prev_t -
+    cum_s) turns its rounding into relative errors, so the kernel must
+    round cum as the plain version does.  Its error against float64 is
+    held to the plain version's."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    B, S, H, hd = 1, 512, 4, 64
+    r, k, v = (torch.randn(B, S, H, hd, generator=g).to(cuda)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, hd, generator=g))
+                  ).to(cuda)
+    u = (torch.randn(H, hd, generator=g) * 0.1).to(cuda)
+    y64, s64 = _wkv_fp64(r, k, v, w, u)
+    yk, sk = wkv_kernel.wkv6_fwd(r, k, v, w, u)
+    yp, sp = wkv_ref.wkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    for got, plain, want in ((yk, yp, y64), (sk, sp, s64)):
+        ek, ep = ((t.double() - want).abs() for t in (got, plain))
+        assert ek.max() <= 1.25 * ep.max(), (float(ek.max()),
+                                             float(ep.max()))
+        assert ek.mean() <= 1.25 * ep.mean(), (float(ek.mean()),
+                                               float(ep.mean()))
+
+
+def test_wkv6_grad_on_card(cuda):
+    """The backward differentiates the plain version on the card."""
+    r, k, v, w, u, s0 = (t.requires_grad_() for t in
+                         _wkv_inputs(1, 64, 2, 16, cuda, seed=5))
+    y, s = wkv_ops.wkv6(r, k, v, w, u, s0=s0)
+    (y.square().sum() + s.square().sum()).backward()
+    torch.cuda.synchronize()
+    ins2 = [t.detach().clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    y2, s2 = wkv_ref.wkv6_ref(*ins2[:5], s0=ins2[5])
+    (y2.square().sum() + s2.square().sum()).backward()
+    for a, b in zip((r, k, v, w, u, s0), ins2):
+        _close(a.grad, b.grad, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (4, 64, 32, 48), (2, 128, 64, 64), (8, 32, 16, 16),
+    (8, 600, 1000, 700),                  # ragged in every dimension
+    (3, 1, 5, 1), (2, 130, 129, 257),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    g = torch.Generator(device="cpu").manual_seed(E * C + F)
+    x = torch.randn(E, C, D, generator=g).to(cuda, dtype)
+    w = torch.randn(E, D, F, generator=g).to(cuda, dtype)
+    reset_launch_counts()
+    got = gmm_ops.gmm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["gmm"] == 1
+    want = gmm_ref.gmm_ref(x, w)
+    assert got.dtype == dtype and got.shape == (E, C, F)
+    _close(got, want, FLASH_ATOL[dtype] * D ** 0.5, 2e-2)
+
+
+def test_gmm_grad_on_card(cuda):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn(3, 40, 24, generator=g).to(cuda).requires_grad_()
+    w = torch.randn(3, 24, 20, generator=g).to(cuda).requires_grad_()
+    gmm_ops.gmm(x, w).square().sum().backward()
+    x2, w2 = (t.detach().clone().requires_grad_() for t in (x, w))
+    gmm_ref.gmm_ref(x2, w2).square().sum().backward()
+    for a, b in ((x, x2), (w, w2)):
+        _close(a.grad, b.grad, 1e-3, 1e-3)
+
+
+def test_wkv6_and_gmm_refuse_what_they_do_not_take(cuda):
+    r = torch.zeros(1, 8, 2, 24, device=cuda)
+    u = torch.zeros(2, 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_kernel.wkv6_fwd(r, r, r, r, u)
+    r = torch.zeros(1, 100, 2, 16, device=cuda)
+    u = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_kernel.wkv6_fwd(r, r, r, r, u, chunk=64)
+    with pytest.raises(ValueError, match="fp32"):
+        wkv_kernel.wkv6_fwd(r, r, r, r.bfloat16(), u)
+    x = torch.zeros(2, 4, 3, device=cuda)
+    with pytest.raises(ValueError, match="expected x"):
+        gmm_kernel.gmm(x, torch.zeros(2, 4, 3, device=cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        gmm_kernel.gmm(x, torch.zeros(2, 3, 5, device=cuda).bfloat16())

@@ -46,6 +46,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.mamba2_ssd.ops\n"
+            "import repro_torch.kernels.rwkv6_scan.ops\n"
+            "import repro_torch.kernels.moe_gmm.ops\n"
             "print(len(repro_torch.core.__all__))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
