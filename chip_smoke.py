@@ -9,7 +9,9 @@ any failure raises and the script exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``) and
    the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together), with ptxas's register,
+   spill and wgmma-serialization lines and the count of HGMMA (wgmma)
+   instructions in the library (``cuobjdump``).
 2. Kernel vs plain version on the card, bit-equal, on seeded synthetic
    inputs: phash over 1,048,576 keys, phash_chain at N=4096, D=16,
    pkval against a 2^23-slot index with ~1M live entries, tombstones and
@@ -43,11 +45,14 @@ any failure raises and the script exits non-zero:
 5. The model kernels against their plain versions on the card, at
    synthetic sizes, in bf16 and fp32: flash attention at B=1, S=4096,
    H=32, KV=8, hd=128 with window None/1024 and softcap None/50, at
-   zamba2's H=KV=32, hd=80, and at a ragged S=1000; the SSD scan at B=2,
+   zamba2's H=KV=32, hd=80, and at a ragged S=1000, and in bf16 at hd=64
+   and hd=256 (H=32, KV=8); the SSD scan at B=2,
    S=4096, H=80, hd=64, N=64, Q=128 with and without an initial state,
    and at a ragged S=1000.  Tolerances: tests/test_kernels.py's (FLASH_TOL,
    SSD_TOL).  ``library_ms`` is one ``scaled_dot_product_attention`` call
-   on the same inputs (none with a softcap; none for the SSD scan).
+   on the same inputs (none with a softcap; none for the SSD scan).  The
+   flash and gmm rows add the achieved TFLOP/s and its share of the
+   989 TFLOP/s bf16 peak (bf16 runs on the tensor cores).
 6. The zamba2 model path on the card: ``get_config("zamba2_2_7b")``
    unchanged (54 layers, full width, 6,587,337,888 parameters in fp32 from
    a seeded ``torch.Generator`` on the card).  A scoring ``forward`` at
@@ -76,12 +81,15 @@ any failure raises and the script exits non-zero:
 8. gmm's own path: the experts' SwiGLU FFN of one qwen3-moe layer over its
    capacity buffers (E=128, C=640 = ceil(8192 x 8 / 128 x 1.25) for B=2,
    S=4096 at top-8, D=2048, F=768, bf16) through ``ops.gmm``: exactly 3
-   gmm launches, each held against the plain version; the first one
-   replayed gives the JSON line's times.  Then the WKV scan and gmm
+   gmm launches, each held against the plain version and each by the TMA
+   route; the first one replayed gives the JSON line's times.  Then the
+   WKV scan and gmm
    against their plain versions, in bf16 and fp32: WKV at B=2, S=4096,
    H=40, hd=64 with and without an initial state, at a ragged S=1000 with
    one, and on the strong-decay input (w = 1e-45); gmm at the qwen3-moe
-   shape and a ragged E=8, C=600, D=1000, F=700.  Tolerances:
+   shape (the TMA route in bf16) and a ragged E=8, C=600, D=1000, F=700
+   (1,400-byte rows: the plain-loads route in bf16); fp32 runs the SIMT
+   kernel, and each row's route is checked.  Tolerances:
    tests/test_kernels.py's (WKV_TOL, GMM_ATOL).  ``library_ms`` is one
    ``torch.bmm`` call for gmm (none for the WKV scan).
 9. The rwkv6 model path on the card: ``get_config("rwkv6_3b")`` unchanged
@@ -620,7 +628,14 @@ def canonical_state(store):
 # phases 5 to 7: the model stack's float kernels and the zamba2 path
 # ---------------------------------------------------------------------------
 
-MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
+#: each model kernel's source on the main paths (bf16: flash and gmm on the
+#: tensor cores; their fp32 SIMT versions stay in model_kernels.cu)
+MODEL_SOURCE = {
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_tc.cu",
+    "ssd": "src/repro_torch/kernels/csrc/model_kernels.cu",
+    "wkv6": "src/repro_torch/kernels/csrc/model_kernels.cu",
+    "gmm": "src/repro_torch/kernels/csrc/gmm_tc.cu",
+}
 MODEL_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "ssd": "src/repro/kernels/mamba2_ssd/kernel.py:76",
@@ -630,6 +645,9 @@ MODEL_REPLACES = {
 #: H100 SXM data sheet, dense: bf16 on the tensor cores, fp32 on the CUDA
 #: cores (the rate of each input type)
 FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the kernels whose bf16 path runs on the tensor cores: their rows give
+#: the achieved TFLOP/s and its share of the bf16 peak (gmm also its route)
+TENSOR_CORE_KERNELS = ("flash_attention", "gmm")
 #: kernel vs plain version: tests/test_kernels.py's tolerances (flash atol
 #: 2e-5 fp32 / 2e-2 bf16 with rtol 1e-2; the SSD scan four times those
 #: with rtol 2e-2)
@@ -828,12 +846,19 @@ def model_kernel_row(name, args, kw, tag, reps=10):
     shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
     opts = {k: tuple(v.shape) if torch.is_tensor(v) else v
             for k, v in kw.items() if v is not None}
+    rate = ""
+    if name in TENSOR_CORE_KERNELS:
+        tflops = n_ops / ms / 1e9
+        rate = (f" tflops={tflops:.1f} share_of_bf16_peak="
+                f"{tflops * 1e12 / FLOPS_PER_S[torch.bfloat16]:.4f}")
+        if name == "gmm":
+            rate += f" route={mod.LAST_ROUTE}"
     log(f"{tag} {name} {str(args[0].dtype)[6:]} {opts} "
         f"shapes={shapes}: max_abs_err={err:.3g} (atol {tol[0]:.3g}, rtol "
         f"{tol[1]}) ms={ms:.6f} call_ms={call_ms:.6f} "
         f"plain_ms={plain_ms:.6f} library_ms="
         f"{'null' if lib_ms is None else f'{lib_ms:.6f}'} "
-        f"bound_ms={b_ms:.6f} ({b_by}; bytes={n_bytes} ops={n_ops})")
+        f"bound_ms={b_ms:.6f} ({b_by}; bytes={n_bytes} ops={n_ops}){rate}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
@@ -843,7 +868,7 @@ def kernel_row(name, rec, launches, tag):
     and the numbers of its first main-path call replayed."""
     args, kw = rec.calls[name]
     nums = model_kernel_row(name, args, kw, tag)
-    return {"name": name, "route": "cuda", "source": MODEL_SOURCE,
+    return {"name": name, "route": "cuda", "source": MODEL_SOURCE[name],
             "replaces": MODEL_REPLACES[name], "launches": launches[name],
             **nums}
 
@@ -876,6 +901,17 @@ def phase_model_kernels(seed: int, dev) -> None:
                          dict(causal=True, window=None, softcap=None),
                          "phase5 ragged")
         del q, k, v, zq, zk, zv, rq, rk, rv
+        if dtype == torch.bfloat16:
+            # two more of the tensor-core kernel's head dims beside
+            # hd=128 and 80 (hd=256: its 32-key tiles)
+            for hd in (64, 256):
+                q = randn(1, SYNTH_S, 32, hd, dtype=dtype)
+                k, v = (randn(1, SYNTH_S, 8, hd, dtype=dtype)
+                        for _ in range(2))
+                model_kernel_row("flash_attention", (q, k, v),
+                                 dict(causal=True, window=None,
+                                      softcap=None), "phase5")
+                del q, k, v
         B, S, H, hd, N = 2, SYNTH_S, 80, 64, 64
         x = randn(B, S, H, hd, dtype=dtype)
         dt = torch.nn.functional.softplus(randn(B, S, H))
@@ -1162,7 +1198,7 @@ def phase_new_kernels(seed: int, dev) -> dict:
     and fp32.  Returns gmm's row of the JSON line."""
     import torch.nn.functional as Fn
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.moe_gmm import kernel as gk, ops as gmm_ops
     g = torch.Generator(device=dev).manual_seed(seed + 8)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -1179,18 +1215,32 @@ def phase_new_kernels(seed: int, dev) -> dict:
         a, gate = gmm_ops.gmm(x, wi), gmm_ops.gmm(x, wg)
         return gmm_ops.gmm(Fn.silu(gate) * a, wo)
 
+    routes = []
     rec = KernelWatch()
+    real_gmm = gk.gmm
+
+    def routed(*a):
+        out = real_gmm(*a)
+        routes.append(gk.LAST_ROUTE)
+        return out
+
+    gk.gmm = routed
     reset_launch_counts()
     y, t = timed(expert_ffn)
     launches = launch_counts()
+    gk.gmm = real_gmm
     rec.restore()
+    if routes != ["tma"] * 3:
+        raise AssertionError(f"expert FFN's gmm routes {routes}: expected "
+                             f"TMA")
     others = {k: n for k, n in launches.items() if n and k != "gmm"}
     if launches["gmm"] != 3 or others:
         raise AssertionError(f"expert FFN launched {launches}")
     if y.shape != (E, C, D) or not bool(torch.isfinite(y.float()).all()):
         raise AssertionError("expert FFN: bad output")
     log(f"phase8 qwen3-moe expert FFN E={E} C={C} D={D} F={F} bf16 through "
-        f"ops.gmm: wall_s={t:.4f} launches={json.dumps(launches)}")
+        f"ops.gmm: wall_s={t:.4f} launches={json.dumps(launches)} "
+        f"routes={routes}")
     log("phase8 expert FFN again, " + checked_run(expert_ffn))
     row = kernel_row("gmm", rec, launches, "phase8 main-path")
     rec.calls.clear()
@@ -1213,11 +1263,15 @@ def phase_new_kernels(seed: int, dev) -> dict:
                                   torch.ones_like(u)),
                          dict(s0=None, chunk=32), "phase8 strong-decay")
         del r, k, v, w, cut
-        for shape, tag in ((GMM_QWEN3, "phase8"),
-                           (GMM_RAGGED, "phase8 ragged")):
+        for shape, tag, route in ((GMM_QWEN3, "phase8", "tma"),
+                                  (GMM_RAGGED, "phase8 ragged", "loads")):
             E, C, D, F = shape
             model_kernel_row("gmm", (randn(E, C, D, dtype=dtype),
                                      randn(E, D, F, dtype=dtype)), {}, tag)
+            want = route if dtype == torch.bfloat16 else "simt"
+            if gk.LAST_ROUTE != want:
+                raise AssertionError(f"gmm {shape} {dtype}: route "
+                                     f"{gk.LAST_ROUTE}, expected {want}")
         torch.cuda.empty_cache()
     return row
 
@@ -1375,8 +1429,16 @@ def main() -> int:
     log(f"build: {_build.build_info['seconds']:.2f} s -> "
         f"{_build.build_info['path']}")
     for line in str(_build.build_info["log"]).splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "C75" in line:
             log(f"  ptxas: {line.strip()}")
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               _build.build_info["path"]],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        log(f"build: {sass.count('HGMMA')} HGMMA (wgmma) instructions in "
+            f"the library's SASS")
 
     # -- phase 2 -----------------------------------------------------------
     phase_kernels(args.seed, dev)

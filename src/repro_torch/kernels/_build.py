@@ -5,10 +5,13 @@ The kernels in ``csrc/`` have a plain C interface, so they are compiled by
 build takes seconds, not minutes).  Every source is compiled to an object
 by its own ``nvcc``, all started together, and the objects are linked into
 one shared library under ``build/kernels/`` at the repository root, named
-by a hash of the sources.  It is built at first use: the first kernel
-launch of a process builds it when it is missing.  Needs ``nvcc``
+by a hash of every file in ``csrc/`` (the sources, the headers they share
+and the flags).  It is built at first use: the first kernel launch of a
+process builds it when it is missing.  The tensor-core kernels reach the
+driver's ``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``.  Needs ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and a card of compute capability
-9.0 (``sm_90a``).
+9.0 (``sm_90a``: ``wgmma`` and ``setmaxnreg`` exist only there).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("metadata_kernels.cu", "model_kernels.cu")
+SOURCES = ("metadata_kernels.cu", "model_kernels.cu", "flash_tc.cu",
+           "gmm_tc.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -45,6 +49,8 @@ def signatures() -> Dict[str, List[type]]:
     out: Dict[str, List[type]] = {}
     for s in SOURCES:
         text = (CSRC / s).read_text()
+        if 'extern "C" {' not in text:
+            continue
         block = text[text.index('extern "C" {'):]
         for name, params in re.findall(r"\bint\s+(\w+_launch)\s*\(([^)]*)\)",
                                        block):
@@ -75,10 +81,15 @@ def _nvcc() -> str:
                        "(set CUDA_HOME)")
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """Hash of the flags and of every file under ``csrc`` (names and
+    contents; Python's bytecode caches aside): a change to a shared header
+    rebuilds the library too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
-        h.update((CSRC / s).read_bytes())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()
+                    and "__pycache__" not in p.parts):
+        h.update(f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -123,6 +134,11 @@ def library() -> ctypes.CDLL:
                           log=log)
         _lib = lib
         return lib
+
+
+def c_int(name: str) -> int:
+    """The value of an ``int`` the library exports (``gmm_last_route``)."""
+    return ctypes.c_int.in_dll(library(), name).value
 
 
 def require_cuda_int32(**tensors: object) -> None:

@@ -8,7 +8,7 @@
 //   wkv6             repro/kernels/rwkv6_scan/kernel.py       wkv6_fwd
 //   gmm              repro/kernels/moe_gmm/kernel.py          gmm
 //
-// and compute the same functions in fp32 arithmetic on bf16 or fp32 inputs.
+// and compute the same functions with fp32 sums on bf16 or fp32 inputs.
 // Tensors keep the model's layouts (q [B,S,H,hd], k/v [B,S,KV,hd],
 // x [B,S,H,hd], dt [B,S,H], B/C [B,S,N], r/k/v/w [B,S,H,hd],
 // x [E,C,D] and w [E,D,F] for gmm); the kernels index them with their own
@@ -21,11 +21,17 @@
 // the H100's bf16 ridge (~295), so it is bound by arithmetic; the SSD scan
 // does ~94 per byte and the WKV scan ~30, below the ridge, so their bound
 // is the bytes they move; gmm at qwen3-moe's expert shape sits at the
-// ridge.  This first version runs all four on the fp32 CUDA cores (67
-// TFLOP/s peak, against 989 for bf16 on the tensor cores), with tiles
-// staged in shared memory and the sums kept in registers, so device memory
-// is read once per tile; all sit far above their bounds.  wgmma and TMA
-// are for a later version.
+// ridge.
+//
+// In bf16, flash attention and gmm run on the tensor cores: wgmma fed by
+// TMA through a ring of shared-memory stages, a producer warpgroup and two
+// consumer warpgroups (flash_tc.cu, gmm_tc.cu; the notes there).  The
+// launchers below send bf16 there at every shape they take.  In fp32 both
+// stay on the fp32 CUDA cores here (the tensor cores take fp32 only as
+// TF32, which cannot meet the fp32 tolerances), as do the SSD and WKV
+// scans at both types: tiles staged in shared memory, sums kept in
+// registers, device memory read once per tile; these sit far above their
+// bounds.
 //
 // Plain C interface (loaded with ctypes): each launcher takes device
 // pointers, sizes and the CUDA stream to launch on, and returns the
@@ -56,9 +62,10 @@ from_f<__nv_bfloat16>(float x) {
 // flash attention forward
 // ---------------------------------------------------------------------------
 //
-// One block of 128 threads per (query tile of BQ rows, b * H + h).  The
-// query tile and each key/value tile of kBK rows are staged in shared
-// memory as fp32; per key tile, as _flash_fwd_kernel does per key block:
+// The fp32 kernel (bf16 runs flash_tc.cu's).  One block of 128 threads
+// per (query tile of BQ rows, b * H + h).  The query tile and each
+// key/value tile of kBK rows are staged in shared memory as fp32; per key
+// tile, as _flash_fwd_kernel does per key block:
 //
 //   A. scores S = (Q K^T) * scale, softcapped and masked: each thread a
 //      register tile of BQ/8 rows x kBK/16 keys, float4 loads along hd;
@@ -769,8 +776,9 @@ int wkv6_dispatch(const void* r, const void* k, const void* v, const void* w,
 // grouped expert matmul
 // ---------------------------------------------------------------------------
 //
-// y[e] = x[e] @ w[e].  One block of 256 threads per (128-column tile of F,
-// 128-row tile of C, expert e), as the TPU kernel's (E, C/bc, F/bf) grid;
+// The fp32 kernel (bf16 runs gmm_tc.cu's).  y[e] = x[e] @ w[e].  One
+// block of 256 threads per (128-column tile of F, 128-row tile of C,
+// expert e), as the TPU kernel's (E, C/bc, F/bf) grid;
 // its sequential D axis becomes the loop over tiles of 8.  Per D tile the
 // x tile (transposed, [k][m]) and the w tile ([k][n]) are staged in shared
 // memory as fp32; each thread keeps an 8 x 8 register tile of the fp32
@@ -848,6 +856,20 @@ int gmm_launch_t(const void* x, const void* w, void* y, int E, int C, int D,
 
 }  // namespace
 
+// the bf16 tensor-core kernels (flash_tc.cu, gmm_tc.cu)
+int tc_flash_bf16(const void* q, const void* k, const void* v, void* out,
+                  int B, int S, int H, int KV, int hd, int causal, int window,
+                  float softcap, float scale, cudaStream_t st);
+int tc_gmm_bf16(const void* x, const void* w, void* y, int E, int C, int D,
+                int F, cudaStream_t st, int* route);
+
+// The route of the last gmm launch: 0 the fp32 SIMT kernel, 1 the
+// tensor-core kernel fed by TMA, 2 the tensor-core kernel fed by plain
+// loads (D or F not a multiple of 8, or an operand not 16-byte aligned).
+extern "C" {
+int gmm_last_route = 0;
+}
+
 extern "C" {
 
 // q [B,S,H,hd], k/v [B,S,KV,hd], out [B,S,H,hd], all bf16 (bf16 != 0) or
@@ -859,9 +881,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? flash_dispatch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, hd,
-                                              causal, window, softcap, scale,
-                                              st)
+  return bf16 ? tc_flash_bf16(q, k, v, out, B, S, H, KV, hd, causal, window,
+                              softcap, scale, st)
               : flash_dispatch<float>(q, k, v, out, B, S, H, KV, hd, causal,
                                       window, softcap, scale, st);
 }
@@ -905,8 +926,9 @@ int gmm_launch(const void* x, const void* w, void* y, int E, int C, int D,
   if (E > 65535 || (C + kGBM - 1) / kGBM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? gmm_launch_t<__nv_bfloat16>(x, w, y, E, C, D, F, st)
-              : gmm_launch_t<float>(x, w, y, E, C, D, F, st);
+  if (bf16) return tc_gmm_bf16(x, w, y, E, C, D, F, st, &gmm_last_route);
+  gmm_last_route = 0;
+  return gmm_launch_t<float>(x, w, y, E, C, D, F, st);
 }
 
 }  // extern "C"

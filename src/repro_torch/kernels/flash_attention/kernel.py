@@ -1,14 +1,21 @@
-"""CUDA binding of the flash-attention forward (``csrc/model_kernels.cu``).
+"""CUDA binding of the flash-attention forward (``csrc/flash_tc.cu`` for
+bf16, ``csrc/model_kernels.cu`` for fp32).
 
 Replaces the Pallas kernel ``flash_attention_fwd`` of the JAX package
 (``repro/kernels/flash_attention/kernel.py``): causal, sliding-window and
 softcapped GQA attention with an online softmax in fp32, on bf16 or fp32
 q [B,S,H,hd] and k/v [B,S,KV,hd], for any S.  At the model's shapes it is
-bound by arithmetic (about S/2 operations per byte of q, k and v, causal);
-this first version does it on the fp32 CUDA cores: one block per (query
-tile of 64 rows, 32 at hd=256; batch row and head), key/value tiles of 32
-rows staged in shared memory, register tiles for Q K^T and P V, key tiles
-past the causal frontier or before the window skipped.
+bound by arithmetic (about S/2 operations per byte of q, k and v,
+causal), so bf16 runs on the tensor cores: one block per (batch row and
+head, 128 query rows), a producer warpgroup loading K and V tiles (64
+keys; 128 at hd=16, 32 at hd=256) by TMA into rings of 4 slots, two consumer warpgroups of 64 rows each computing Q K^T and P V
+with ``wgmma``, the scores and P kept in registers (P as two bf16 parts,
+high and low, for P V: one bf16 rounding, the TPU kernel's, puts the
+model path's outputs past the bf16 tolerance); one warpgroup's softmax
+runs under the other's products.  fp32 runs a SIMT kernel on the CUDA cores (the tensor
+cores take fp32 only as TF32).  Key tiles past the causal frontier or
+before the window are skipped.  bf16 q, k and v must be 16-byte aligned
+(TMA's rule), as every tensor PyTorch allocates is.
 """
 from __future__ import annotations
 
@@ -43,6 +50,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must be "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     if q.numel():
         launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),

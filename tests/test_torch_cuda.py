@@ -3,6 +3,9 @@ and the float ones (flash attention, the SSD scan, the WKV scan, the
 grouped matmul) within the tolerances of ``tests/test_kernels.py`` against
 their plain PyTorch versions, and the
 planned request path run on the card against the same path on the CPU.
+The bf16 tensor-core kernels (flash attention, gmm) are also held at every
+head dim and on both of gmm's routes, and to the plain version's error
+against a float64 recomputation.
 Needs an NVIDIA card of compute capability 9.0 and ``nvcc``; skipped
 elsewhere:
 
@@ -460,3 +463,122 @@ def test_wkv6_and_gmm_refuse_what_they_do_not_take(cuda):
         gmm_kernel.gmm(x, torch.zeros(2, 4, 3, device=cuda))
     with pytest.raises(ValueError, match="dtype"):
         gmm_kernel.gmm(x, torch.zeros(2, 3, 5, device=cuda).bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels: gmm's two routes (TMA, plain loads), flash at
+# every head dim and mask, and both against float64
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("E,C,D,F,route", [
+    (2, 256, 128, 512, "tma"),            # whole tiles (128 x 256, D by 64)
+    (2, 600, 1000, 776, "tma"),           # ragged in C, D and F
+    (2, 130, 129, 257, "loads"),          # row strides not 16-byte multiples
+    (3, 1, 5, 1, "loads"),
+    (8, 600, 1000, 700, "loads"),         # F = 700: 1,400-byte rows
+])
+def test_gmm_bf16_routes(cuda, E, C, D, F, route):
+    g = torch.Generator(device="cpu").manual_seed(E + C + D + F)
+    x = torch.randn(E, C, D, generator=g).to(cuda, torch.bfloat16)
+    w = torch.randn(E, D, F, generator=g).to(cuda, torch.bfloat16)
+    reset_launch_counts()
+    got = gmm_kernel.gmm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["gmm"] == 1 and gmm_kernel.LAST_ROUTE == route
+    want = gmm_ref.gmm_ref(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (E, C, F)
+    _close(got, want, FLASH_ATOL[torch.bfloat16] * D ** 0.5, 2e-2)
+
+
+def test_gmm_fp32_route_is_simt(cuda):
+    x = torch.randn(2, 64, 32, device=cuda)
+    w = torch.randn(2, 32, 48, device=cuda)
+    got = gmm_kernel.gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm_kernel.LAST_ROUTE == "simt"
+    _close(got, gmm_ref.gmm_ref(x, w), FLASH_ATOL[torch.float32] * 32 ** 0.5,
+           2e-2)
+
+
+@pytest.mark.parametrize("hd", fa_kernel.HEAD_DIMS)
+def test_flash_bf16_every_head_dim(cuda, hd):
+    """S = 1000: a ragged last key tile (128 keys, 64 at hd=256) and a
+    ragged last query tile."""
+    g = torch.Generator(device="cpu").manual_seed(hd)
+    B, S, H, KV = 2, 1000, 4, 2
+    q, k, v = (torch.randn(B, S, h, hd, generator=g).to(cuda, torch.bfloat16)
+               for h in (H, KV, KV))
+    reset_launch_counts()
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = fa_ref.attention_ref(q, k, v, causal=True)
+    _close(got, want, FLASH_ATOL[torch.bfloat16], 1e-2)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,softcap", [
+    (1, 300, 4, 4, 64, True, 40, None),   # window inside one key tile
+    (1, 700, 2, 1, 128, True, 200, None), # window across tiles
+    (2, 513, 8, 2, 80, True, None, None), # GQA, H / KV = 4
+    (1, 400, 4, 1, 32, True, None, 30.0), # softcap
+    (1, 333, 4, 2, 64, False, None, None),  # no mask
+    (1, 300, 2, 2, 256, False, 64, 20.0),
+    (3, 1, 4, 2, 80, True, None, None),   # S = 1
+    (1, 1, 2, 2, 256, True, 1, 50.0),
+])
+def test_flash_bf16_masks(cuda, B, S, H, KV, hd, causal, window, softcap):
+    g = torch.Generator(device="cpu").manual_seed(S * hd + H)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g).to(cuda, torch.bfloat16)
+               for h in (H, KV, KV))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa_ref.attention_ref(q, k, v, **kw)
+    _close(got, want, FLASH_ATOL[torch.bfloat16], 1e-2)
+
+
+def test_flash_bf16_refuses_misaligned(cuda):
+    buf = torch.zeros(1 * 8 * 2 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_kernel.flash_attention_fwd(q, q, q)
+
+
+def _attention_fp64(q, k, v):
+    """Causal GQA attention in float64, as a yardstick of both versions."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qd = q.double()
+    kd, vd = (t.double().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bshd->bhqs", qd, kd) / hd ** 0.5
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, -torch.inf), dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", p, vd)
+
+
+def test_tensor_core_kernels_as_accurate_as_plain(cuda):
+    """Error against float64, mean over the output, held to 1.5x the plain
+    bf16 version's.  Both sum in fp32 and round the output to bf16, and
+    flash keeps P as two bf16 parts (~2^-17 of each weight), so the
+    output's rounding dominates both errors: they should be about equal.
+    The factor leaves room for the kernels' other order of summation and
+    flash's base-2 exponentials, not for a second rounding of P (which
+    alone would add an error of the output rounding's size, ~1.3x in the
+    mean)."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    bf = torch.bfloat16
+    x = torch.randn(4, 256, 512, generator=g).to(cuda, bf)
+    w = torch.randn(4, 512, 384, generator=g).to(cuda, bf)
+    y64 = torch.einsum("ecd,edf->ecf", x.double(), w.double())
+    yk, yp = gmm_kernel.gmm(x, w), gmm_ref.gmm_ref(x, w)
+    q = torch.randn(1, 1024, 8, 128, generator=g).to(cuda, bf)
+    k, v = (torch.randn(1, 1024, 2, 128, generator=g).to(cuda, bf)
+            for _ in range(2))
+    o64 = _attention_fp64(q, k, v)
+    ok = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
+    op = fa_ref.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for name, got, plain, want in (("gmm", yk, yp, y64),
+                                   ("flash", ok, op, o64)):
+        ek, ep = ((t.double() - want).abs().mean() for t in (got, plain))
+        assert ek <= 1.5 * ep, (name, float(ek), float(ep))

@@ -593,3 +593,34 @@ def test_launcher_signatures_match_bindings():
                 name = node.args[0].value
                 seen[name] = len(node.args) - 1
     assert seen == {k: len(v) - 1 for k, v in sigs.items()}
+
+
+# ---------------------------------------------------------------------------
+# the build: what its hash covers, and the generated wgmma wrappers
+# ---------------------------------------------------------------------------
+
+def test_build_digest_covers_headers(tmp_path):
+    """A change to a header the sources share (not listed in SOURCES)
+    names another library, so it is rebuilt."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    assert _build._digest(csrc) == _build._digest()
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers and not {h.name for h in headers} & set(_build.SOURCES)
+    for h in headers:
+        before = _build._digest(csrc)
+        h.write_text(h.read_text() + "\n// changed\n")
+        assert _build._digest(csrc) != before, h.name
+
+
+def test_wgmma_header_is_what_its_generator_writes():
+    import importlib.util
+    from repro_torch.kernels import _build
+    spec = importlib.util.spec_from_file_location(
+        "gen_wgmma", _build.CSRC / "gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert (_build.CSRC / "wgmma_ops.cuh").read_text() == gen.render()
