@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--bulk 1000000] [--ops 20000]
+    python3 chip_smoke.py --scan-times [--src DIR] [--tag NAME] [--profile]
 
 Drives the ported paths, the metadata request path (phases 2-4), the
 zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
@@ -27,7 +28,9 @@ any failure raises and the script exits non-zero:
    1M entries, lives on the card), then a ``--ops`` Spotify trace through
    ``DFSClient.run_trace(planned=True, batch_size=64, window=1024,
    adaptive=False)`` (its subtree deletes expand their waves with
-   treeagg over the inode columns on the card), a ``du`` of the whole
+   treeagg over the inode columns on the card; each namenode's subtree
+   pool at parallelism 1, so that its threads cannot race on a shared
+   OpCost and the run is deterministic), a ``du`` of the whole
    namespace (a treeagg launch per wave) and a ``DFSClient.batch()`` of
    1,024 stats served from the namenode's hint cache.  The launch counts
    are set to 0 just before and read just after: each of the five
@@ -36,7 +39,8 @@ any failure raises and the script exits non-zero:
    plain version: those shapes give the JSON line's times and bounds.
 4. Checks: the same build, trace, du and batch on the host (plain
    versions) must end byte-equal to the card's run, in state, outcomes,
-   OpCost and counts.  Then the oracle, the dict ``MetadataStore``: every
+   OpCost and counts; a failure names the first table row and the first
+   op that differ and every differing key.  Then the oracle, the dict ``MetadataStore``: every
    outcome must be equal, and every table's rows, with inode and block ids
    replaced by paths and the namenodes' atime/mtime clocks left out
    (``canonical_state``); byte-equal, ids and all, when pkval demoted no
@@ -51,14 +55,19 @@ any failure raises and the script exits non-zero:
    and at a ragged S=1000.  Tolerances: tests/test_kernels.py's (FLASH_TOL,
    SSD_TOL).  ``library_ms`` is one ``scaled_dot_product_attention`` call
    on the same inputs (none with a softcap; none for the SSD scan).  The
-   flash and gmm rows add the achieved TFLOP/s and its share of the
-   989 TFLOP/s bf16 peak (bf16 runs on the tensor cores).
+   rows of the kernels that run bf16 on the tensor cores (flash, gmm and
+   the two scans) add the achieved TFLOP/s and its share of the
+   989 TFLOP/s bf16 peak; gmm's and the scans' rows their route (a scan:
+   ``tc`` in bf16, ``simt`` in fp32, as the library recorded it after the
+   launch; phases 6 and 9 hold every main-path launch to it), the scans'
+   rows their segments of G chunks and the bytes of state scratch.
 6. The zamba2 model path on the card: ``get_config("zamba2_2_7b")``
    unchanged (54 layers, full width, 6,587,337,888 parameters in fp32 from
    a seeded ``torch.Generator`` on the card).  A scoring ``forward`` at
    B=2, S=4096 with ``use_kernels=True``: the launch counts are set to 0
    just before and read just after, and must be exactly 9 flash_attention
-   and 54 ssd; its logits held against the plain path's.  Each kernel's
+   and 54 ssd, every ssd launch on the tensor-core route; its logits held
+   against the plain path's.  Each kernel's
    first call on that path is replayed against its plain version, which
    gives the JSON line's times and bounds.  The same forward once more with
    every one of its launches held against the plain version on that
@@ -95,8 +104,8 @@ any failure raises and the script exits non-zero:
 9. The rwkv6 model path on the card: ``get_config("rwkv6_3b")`` unchanged
    (32 layers, full width, 3,073,479,680 parameters in fp32 from a seeded
    ``torch.Generator`` on the card, bf16 compute).  A scoring ``forward``
-   at B=2, S=4096 with ``use_kernels=True``: exactly 32 wkv6 launches and
-   none of the other model kernels; its logits held against the plain
+   at B=2, S=4096 with ``use_kernels=True``: exactly 32 wkv6 launches,
+   each on the tensor-core route, and none of the other model kernels; its logits held against the plain
    path's; the first launch replayed for the JSON line; the forward once
    more with every launch held against the plain version.  A cache-filling
    prefill in two segments (B=4: S=1024 from the engine's zero cache, then
@@ -110,6 +119,16 @@ any failure raises and the script exits non-zero:
 The line before the last is the kernels' JSON (nine kernels), the last
 line the device JSON.  Without a CUDA device, or outside the repository,
 it exits non-zero and prints no result.
+
+``--scan-times`` runs none of the phases: it holds the two chunked scans,
+``ssd`` and ``wkv6``, against their plain versions at the model paths'
+shapes (SCAN_CASES) and times them as phase 5 does, one JSON line a case
+(``--profile`` adds each call's CUDA kernels, local states, pass and chunk
+loop, as ``torch.profiler`` traces them).  ``--src`` imports
+``repro_torch`` from the ``src`` directory of another checkout, which
+builds its own kernels, so that two versions are timed by the same code:
+compare them in one call on one card, in turns (parent, change, change,
+parent).
 """
 from __future__ import annotations
 
@@ -487,6 +506,15 @@ class Recorder:
             setattr(owner, name, real)
 
 
+#: each namenode's subtree pool: waves scanned and chunks committed one at
+#: a time.  The wave scans of the thread pool merge their costs into one
+#: OpCost from several threads (SubtreeOps._wave_scan, as in the
+#: reference), and a thread switch inside that merge loses an update, so
+#: two runs of one trace could differ in OpCost.  The sums are what a
+#: race-free pool gives.
+SUBTREE_PARALLELISM = 1
+
+
 def build(columnar: bool, bulk: int, dev):
     import repro_torch.core as T
     from repro_torch.core.columnar import ColumnarMetadataStore
@@ -495,6 +523,8 @@ def build(columnar: bool, bulk: int, dev):
     store = cls(n_datanodes=4, device=dev)
     T.format_fs(store)
     cluster = T.NamenodeCluster(store, 4)
+    for nn in cluster.namenodes:
+        nn.subtree.parallelism = SUBTREE_PARALLELISM
     ns = SyntheticNamespace(NamespaceSpec(), n_dirs=127, files_per_dir=16)
     T.materialize_namespace(cluster.namenodes[0], ns)
     if bulk:
@@ -580,6 +610,50 @@ def outcomes(r, physical: bool = True):
     return ops, du, stats
 
 
+def _first_diff(a, b) -> int:
+    """Index of the first element where sequences a and b differ (the
+    shorter one's length when one is a prefix of the other)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def replay_differences(a, b) -> list:
+    """What differs between two results of ``drive``: the first table and
+    row of ``dump_state`` that differ, the first op whose outcome differs
+    (both outcomes), the du's and the batch's results, and every key of
+    the counts and of the OpCost that differs.  Empty when they agree."""
+    out = []
+    sa, sb = a["store"].dump_state(), b["store"].dump_state()
+    for name in sorted(set(sa) | set(sb)):
+        ra, rb = sa.get(name, []), sb.get(name, [])
+        if ra != rb:
+            i = _first_diff(ra, rb)
+            out.append(f"dump_state table {name!r} ({len(ra)} vs {len(rb)} "
+                       f"rows) first differs at row {i}: "
+                       f"{ra[i] if i < len(ra) else None!r} vs "
+                       f"{rb[i] if i < len(rb) else None!r}")
+            break
+    (oa, da, ba), (ob, db, bb) = outcomes(a), outcomes(b)
+    if oa != ob:
+        i = _first_diff(oa, ob)
+        out.append(f"op {i} of {len(oa)} vs {len(ob)} first differs: "
+                   f"{oa[i] if i < len(oa) else None!r} vs "
+                   f"{ob[i] if i < len(ob) else None!r}")
+    if da != db:
+        out.append(f"du: {da!r} vs {db!r}")
+    if ba != bb:
+        i = _first_diff(ba, bb)
+        out.append(f"batch run {i} differs")
+    for what, ka, kb in (("counts", a["counts"], b["counts"]),
+                         ("OpCost", a["stats"].total_cost.as_dict(),
+                          b["stats"].total_cost.as_dict())):
+        keys = sorted(k for k in set(ka) | set(kb) if ka.get(k) != kb.get(k))
+        if keys:
+            out.append(f"{what}: " + ", ".join(
+                f"{k} {ka.get(k)} vs {kb.get(k)}" for k in keys))
+    return out
+
+
 def canonical_state(store):
     """Every table's rows (``id_seq``, the id allocators' positions, left
     out) with inode ids replaced by paths, block ids by (file path, block
@@ -629,11 +703,12 @@ def canonical_state(store):
 # ---------------------------------------------------------------------------
 
 #: each model kernel's source on the main paths (bf16: flash and gmm on the
-#: tensor cores; their fp32 SIMT versions stay in model_kernels.cu)
+#: tensor cores, their fp32 SIMT versions in model_kernels.cu; the scans'
+#: tensor-core and fp32 SIMT kernels share a file each)
 MODEL_SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_tc.cu",
-    "ssd": "src/repro_torch/kernels/csrc/model_kernels.cu",
-    "wkv6": "src/repro_torch/kernels/csrc/model_kernels.cu",
+    "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "wkv6": "src/repro_torch/kernels/csrc/wkv_scan.cu",
     "gmm": "src/repro_torch/kernels/csrc/gmm_tc.cu",
 }
 MODEL_REPLACES = {
@@ -646,8 +721,12 @@ MODEL_REPLACES = {
 #: cores (the rate of each input type)
 FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: the kernels whose bf16 path runs on the tensor cores: their rows give
-#: the achieved TFLOP/s and its share of the bf16 peak (gmm also its route)
-TENSOR_CORE_KERNELS = ("flash_attention", "gmm")
+#: the achieved TFLOP/s and its share of the bf16 peak (gmm and the scans
+#: also their route, the scans their segments and state scratch)
+TENSOR_CORE_KERNELS = ("flash_attention", "gmm", "ssd", "wkv6")
+#: the route each scan must take by dtype: the tensor cores for bf16, no
+#: fallback
+SCAN_ROUTES = {torch.bfloat16: "tc", torch.float32: "simt"}
 #: kernel vs plain version: tests/test_kernels.py's tolerances (flash atol
 #: 2e-5 fp32 / 2e-2 bf16 with rtol 1e-2; the SSD scan four times those
 #: with rtol 2e-2)
@@ -851,8 +930,10 @@ def model_kernel_row(name, args, kw, tag, reps=10):
         tflops = n_ops / ms / 1e9
         rate = (f" tflops={tflops:.1f} share_of_bf16_peak="
                 f"{tflops * 1e12 / FLOPS_PER_S[torch.bfloat16]:.4f}")
-        if name == "gmm":
+        if name != "flash_attention":
             rate += f" route={mod.LAST_ROUTE}"
+        if name in ("ssd", "wkv6"):
+            rate += f" plan={json.dumps(mod.LAST_PLAN)}"
     log(f"{tag} {name} {str(args[0].dtype)[6:]} {opts} "
         f"shapes={shapes}: max_abs_err={err:.3g} (atol {tol[0]:.3g}, rtol "
         f"{tol[1]}) ms={ms:.6f} call_ms={call_ms:.6f} "
@@ -929,9 +1010,10 @@ def phase_model_kernels(seed: int, dev) -> None:
 
 class KernelWatch:
     """Wraps the model kernel bindings: keeps a copy of each one's first
-    call and, with ``check``, holds every launch against the plain version
-    on the same inputs (FLASH_TOL, SSD_TOL, WKV_TOL, GMM_ATOL) and keeps
-    the largest error of each kernel."""
+    call, holds each scan launch to its route (SCAN_ROUTES) and, with
+    ``check``, holds every launch against the plain version on the same
+    inputs (FLASH_TOL, SSD_TOL, WKV_TOL, GMM_ATOL) and keeps the largest
+    error of each kernel."""
 
     def __init__(self, check: bool = False):
         self.calls, self.checked = {}, {}
@@ -940,10 +1022,10 @@ class KernelWatch:
                 model_kernels().items():
             real = getattr(mod, attr)
             self._orig.append((mod, attr, real))
-            setattr(mod, attr, self._wrap(name, real, plain if check
+            setattr(mod, attr, self._wrap(name, mod, real, plain if check
                                           else None, tol_of))
 
-    def _wrap(self, name, real, plain, tol_of):
+    def _wrap(self, name, mod, real, plain, tol_of):
         def watched(*args, **kw):
             if name not in self.calls:
                 self.calls[name] = (tuple(
@@ -951,6 +1033,9 @@ class KernelWatch:
                     {k: v.clone() if torch.is_tensor(v) else v
                      for k, v in kw.items()})
             got = real(*args, **kw)
+            if name in ("ssd", "wkv6") \
+                    and mod.LAST_ROUTE != SCAN_ROUTES[args[0].dtype]:
+                raise AssertionError(f"{name}: route {mod.LAST_ROUTE}")
             if plain is not None:
                 want = plain(*args, **kw)
                 atol, rtol = tol_of(args)
@@ -1402,17 +1487,103 @@ def phase_rwkv(seed: int, dev) -> tuple:
     return rows, params
 
 
+#: --scan-times: (kernel, case, dtype, shape, from a state): zamba2's
+#: scoring forward (B=2, S=4096) and its cache-filling prefill (B=4,
+#: S=1024, from a state); rwkv6's scoring forward and the second segment
+#: of its prefill (from a bf16 state)
+SCAN_CASES = (
+    ("ssd", "zamba2 scoring", torch.bfloat16, (2, 4096, 80, 64, 64), False),
+    ("ssd", "zamba2 prefill h0", torch.bfloat16, (4, 1024, 80, 64, 64), True),
+    ("ssd", "zamba2 scoring", torch.float32, (2, 4096, 80, 64, 64), False),
+    ("wkv6", "rwkv6 scoring", torch.bfloat16, (2, 4096, 40, 64), False),
+    ("wkv6", "rwkv6 prefill s0", torch.bfloat16, (4, 1024, 40, 64), True),
+    ("wkv6", "rwkv6 scoring", torch.float32, (2, 4096, 40, 64), False),
+)
+
+
+def kernel_us(fn, calls: int = 5) -> list:
+    """[(kernel name, grid, mean device us a call)] of ``calls`` calls,
+    from the profiler's trace (written under build/, read back, removed)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "scan_times_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    path.unlink()
+    sums = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            key = (e["name"][:80], str(e.get("args", {}).get("grid")))
+            sums[key] = sums.get(key, 0.0) + e["dur"] / calls
+    return [(n, g, round(us, 3)) for (n, g), us in sums.items()]
+
+
+def scan_times(tag: str, profile: bool, seed: int, dev) -> None:
+    """--scan-times: each of SCAN_CASES through model_kernel_row (held
+    against the plain version, timed), then one JSON line."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=g, device=dev) * scale
+
+    for kernel, case, dtype, shape, with_state in SCAN_CASES:
+        if kernel == "ssd":
+            B, S, H, hd, N = shape
+            a = (randn(B, S, H, hd).to(dtype),
+                 torch.nn.functional.softplus(randn(B, S, H)),
+                 -torch.exp(randn(H) * 0.3), randn(B, S, N).to(dtype),
+                 randn(B, S, N).to(dtype))
+            kw = {"h0": randn(B, H, hd, N) if with_state else None}
+        else:
+            B, S, H, hd = shape
+            a = (randn(B, S, H, hd).to(dtype), randn(B, S, H, hd).to(dtype),
+                 randn(B, S, H, hd).to(dtype),
+                 torch.exp(-torch.exp(randn(B, S, H, hd) * 0.5)),
+                 randn(H, hd, scale=0.1))
+            kw = {"s0": randn(B, H, hd, hd).to(torch.bfloat16)
+                  if with_state else None}
+        nums = model_kernel_row(kernel, a, kw, f"scan-times {tag} {case}")
+        mod, attr = model_kernels()[kernel][:2]
+        row = {"tag": tag, "kernel": kernel, "case": case,
+               "dtype": str(dtype)[6:], "shape": shape, "ms": nums["ms"],
+               "max_abs_err": nums["max_abs_err"], "route": mod.LAST_ROUTE,
+               "plan": mod.LAST_PLAN}
+        if profile:
+            kern = getattr(mod, attr)
+            row["kernels_us"] = kernel_us(lambda: kern(*a, **kw))
+        print(json.dumps(row), flush=True)
+        del a, kw
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bulk", type=int, default=1_000_000)
     ap.add_argument("--ops", type=int, default=20_000)
+    ap.add_argument("--scan-times", action="store_true",
+                    help="time the two chunked scans only")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="with --scan-times: where repro_torch is imported "
+                    "from")
+    ap.add_argument("--tag", default="this",
+                    help="with --scan-times: the name of its JSON lines")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --scan-times: each call's CUDA kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on "
               "the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.src)
     from repro_torch.kernels import _build, launch_counts, \
         reset_launch_counts
     t_start = time.perf_counter()
@@ -1428,6 +1599,9 @@ def main() -> int:
     _build.library()
     log(f"build: {_build.build_info['seconds']:.2f} s -> "
         f"{_build.build_info['path']}")
+    if args.scan_times:
+        scan_times(args.tag, args.profile, args.seed, dev)
+        return 0
     for line in str(_build.build_info["log"]).splitlines():
         if "registers" in line or "spill" in line or "C75" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1512,11 +1686,10 @@ def main() -> int:
     # -- phase 4 -----------------------------------------------------------
     # the same run on the host, plain versions: equal in every byte
     host = drive(True, args.bulk, args.ops, torch.device("cpu"))
-    if host["store"].dump_state() != col["store"].dump_state():
-        raise AssertionError("card store state != host store state")
-    if outcomes(host) != outcomes(col) or host["counts"] != counts \
-            or host["stats"].total_cost.as_dict() != st.total_cost.as_dict():
-        raise AssertionError("card outcomes or counts != host run's")
+    differ = replay_differences(col, host)
+    if differ:
+        raise AssertionError("card run (first) != host run (second): "
+                             + "; ".join(differ))
     log(f"phase4 host: columnar store on the CPU (plain versions): state, "
         f"{len(st.outcomes)} outcomes, du, OpCost and counts equal; "
         f"trace_s={host['t_trace']:.3f}")

@@ -24,11 +24,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("metadata_kernels.cu", "model_kernels.cu", "flash_tc.cu",
-           "gmm_tc.cu")
+           "gmm_tc.cu", "ssd_scan.cu", "wkv_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -136,8 +136,27 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+#: blocks a segment-parallel scan (``ssd_scan.cu``, ``wkv_scan.cu``) aims
+#: at for each SM: a few resident at once and several waves, so that the
+#: last wave's tail is short
+SEGMENT_BLOCKS_PER_SM = 8
+
+
+def segments(n_chunks: int, n_rows: int, device) -> Tuple[int, int]:
+    """(chunks a segment G, segments) of a segment-parallel scan of
+    ``n_chunks`` chunks for ``n_rows`` (batch row, head) pairs: the largest
+    G that still gives about :data:`SEGMENT_BLOCKS_PER_SM` blocks or more
+    for each SM of the card, since every segment boundary adds a state's
+    bytes to move."""
+    import torch
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    g = max(1, n_chunks * n_rows // (SEGMENT_BLOCKS_PER_SM * sms))
+    return g, max(1, -(-n_chunks // g))
+
+
 def c_int(name: str) -> int:
-    """The value of an ``int`` the library exports (``gmm_last_route``)."""
+    """The value of an ``int`` the library exports (``gmm_last_route``,
+    ``ssd_last_route``, ``wkv6_last_route``)."""
     return ctypes.c_int.in_dll(library(), name).value
 
 

@@ -73,7 +73,9 @@
 
 namespace {
 
+using tc::ex2;
 using tc::smem_u32;
+using tc::split_bf16;
 
 constexpr int kConsumers = 256;            // warpgroups 0 and 1
 constexpr int kThreads = kConsumers + 128; // and the producer, warpgroup 2
@@ -116,12 +118,6 @@ struct Tile {
   }
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
                                         int window) {
   return kp < S && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
@@ -151,16 +147,6 @@ __device__ __forceinline__ void pv_issue(float* o, const uint32_t* pa,
                           tc::kSwizzle32), 1);
     }
   }
-}
-
-// p0, p1 as a packed bf16 pair (the high part, nearest even) and the
-// packed bf16 pair of what that rounding left (the low part): hi + lo
-// holds p to ~2^-17 of its size, where hi alone holds it to 2^-9.
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tc::pack_bf16(p0, p1);
-  lo = tc::pack_bf16(p0 - __uint_as_float(hi << 16),
-                     p1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // The online softmax of one tile's scores sc (this thread's rows ra, rb):

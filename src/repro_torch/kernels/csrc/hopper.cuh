@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gmm_tc.cu, flash_tc.cu): mbarriers, TMA loads and stores, wgmma
-// shared-memory descriptors and fences, register reallocation between
-// warpgroups, and the host-side encoding of TMA tensor maps.  Plain PTX;
-// nothing from CUTLASS.
+// (gmm_tc.cu, flash_tc.cu, ssd_scan.cu, wkv_scan.cu): mbarriers, TMA loads
+// and stores, wgmma shared-memory descriptors and fences, register
+// reallocation between warpgroups, the warp-level mma.sync and ldmatrix
+// with the swizzle of their tiles, cp.async, the split of fp32 values into
+// two bf16 parts, and the host-side encoding of TMA tensor maps.  Plain
+// PTX; nothing from CUTLASS.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -178,6 +180,156 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// p0, p1 as a packed bf16 pair (the high part, nearest even) and the
+// packed bf16 pair of what that rounding left (the low part): hi + lo
+// holds p to ~2^-17 of its size, where hi alone holds it to 2^-9.
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(p0, p1);
+  lo = pack_bf16(p0 - __uint_as_float(hi << 16),
+                 p1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// 2^x by the special-function unit (flushing results below the normal
+// range to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The two floats of a packed bf16 pair (lo: the low half).
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// --- warp-level mma.sync and ldmatrix ---------------------------------------
+//
+// mma.sync m16n8k16, bf16 in, fp32 sums: d += a b.  Thread (g = lane / 4,
+// q = lane % 4) holds
+//   a: a[0] = A[g][2q, 2q+1], a[1] = A[g+8][2q, 2q+1],
+//      a[2] = A[g][2q+8, 2q+9], a[3] = A[g+8][2q+8, 2q+9];
+//   b: b[0] = B[2q, 2q+1][g], b[1] = B[2q+8, 2q+9][g];
+//   d: d[0], d[1] = D[g][2q, 2q+1], d[2], d[3] = D[g+8][2q, 2q+1].
+// So the sums of two neighbouring n8 tiles are, packed pair by pair, the A
+// operand of a product over those 16 columns.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix: each of 16 (x2) or 32 (x4) lanes gives the address of one
+// 16-byte row of an 8 x 8 bf16 matrix; lane i of the warp receives row
+// i / 4, columns 2 (i % 4), +1 of each matrix (.trans: column i / 4, rows
+// 2 (i % 4), +1).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, "
+               "[%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// A bf16 tile of rows of R elements (R a multiple of 16) in shared memory,
+// its 16-byte chunks swizzled so that the 8 rows an ldmatrix reads at one
+// column fall in 8 different bank groups: element (row, col) of the tile
+// at `base` (a byte address).
+template <int R>
+__device__ __forceinline__ uint32_t swz(uint32_t base, int row, int col) {
+  constexpr int CH = R / 8;                // 16-byte chunks a row
+  const int c = col >> 3;
+  int p;
+  if constexpr (CH >= 8) p = c ^ (row & 7);
+  else if constexpr (CH == 4) p = c ^ ((row >> 1) & 3);
+  else p = c ^ ((row >> 2) & 1);
+  return base + (uint32_t)(row * R + p * 8 + (col & 7)) * 2u;
+}
+
+// The A operand (16 x 16, rows m0.., columns k0..) of an mma from a tile
+// [m][k] (ldsm_a) or from a tile [k][m] (ldsm_a_t), and the B operand (16
+// x 8, rows k0.., column n0..) from a tile [k][n] (ldsm_b_t); R is the
+// tile's row length.
+template <int R>
+__device__ __forceinline__ void ldsm_a(uint32_t* a, uint32_t t, int m0,
+                                       int k0, int lane) {
+  ldsm_x4(a, swz<R>(t, m0 + (lane & 15), k0 + (lane >> 4) * 8));
+}
+template <int R>
+__device__ __forceinline__ void ldsm_a_t(uint32_t* a, uint32_t t, int m0,
+                                         int k0, int lane) {
+  const int j = lane >> 3;
+  ldsm_x4_t(a, swz<R>(t, k0 + (j >> 1) * 8 + (lane & 7), m0 + (j & 1) * 8));
+}
+template <int R>
+__device__ __forceinline__ void ldsm_b_t(uint32_t* b, uint32_t t, int k0,
+                                         int n0, int lane) {
+  ldsm_x2_t(b, swz<R>(t, k0 + ((lane >> 3) & 1) * 8 + (lane & 7), n0));
+}
+
+// The B operands of two neighbouring 8-column tiles (n0 and n0 + 8) by one
+// ldmatrix.x4, from a tile [n][k] (ldsm_b_pair) or [k][n] (ldsm_b_t_pair).
+template <int R>
+__device__ __forceinline__ void ldsm_b_pair(uint32_t* b0, uint32_t* b1,
+                                            uint32_t t, int k0, int n0,
+                                            int lane) {
+  uint32_t r[4];
+  ldsm_x4(r, swz<R>(t, n0 + (lane & 7) + ((lane >> 4) << 3),
+                    k0 + ((lane >> 3) & 1) * 8));
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+template <int R>
+__device__ __forceinline__ void ldsm_b_t_pair(uint32_t* b0, uint32_t* b1,
+                                              uint32_t t, int k0, int n0,
+                                              int lane) {
+  uint32_t r[4];
+  ldsm_x4_t(r, swz<R>(t, k0 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                      n0 + ((lane >> 4) << 3)));
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+
+// The B operands of NT neighbouring 8-column tiles from n0, from a tile
+// [k][n]: in pairs, and an odd last one alone.
+template <int R, int NT>
+__device__ __forceinline__ void ldsm_bs_t(uint32_t (*b)[2], uint32_t t,
+                                          int k0, int n0, int lane) {
+#pragma unroll
+  for (int j = 0; j + 1 < NT; j += 2)
+    ldsm_b_t_pair<R>(b[j], b[j + 1], t, k0, n0 + 8 * j, lane);
+  if constexpr (NT % 2) ldsm_b_t<R>(b[NT - 1], t, k0, n0 + 8 * (NT - 1), lane);
+}
+
+// --- cp.async ----------------------------------------------------------------
+
+// 16 bytes from global to shared memory, asynchronously (in the L2 only).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // --- host: tensor maps -----------------------------------------------------

@@ -1,16 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels for the model stack's float hot
-// paths: causal / sliding-window / softcapped GQA flash attention, the
-// Mamba2 chunked SSD scan, the RWKV-6 chunked WKV scan and the grouped
-// expert matmul.  They replace the Pallas TPU kernels
+// paths: causal / sliding-window / softcapped GQA flash attention and the
+// grouped expert matmul.  They replace the Pallas TPU kernels
 //
 //   flash_attention  repro/kernels/flash_attention/kernel.py  flash_attention_fwd
-//   ssd              repro/kernels/mamba2_ssd/kernel.py       ssd_fwd
-//   wkv6             repro/kernels/rwkv6_scan/kernel.py       wkv6_fwd
 //   gmm              repro/kernels/moe_gmm/kernel.py          gmm
 //
 // and compute the same functions with fp32 sums on bf16 or fp32 inputs.
+// (The chunked scans, ssd and wkv6, are in ssd_scan.cu and wkv_scan.cu.)
 // Tensors keep the model's layouts (q [B,S,H,hd], k/v [B,S,KV,hd],
-// x [B,S,H,hd], dt [B,S,H], B/C [B,S,N], r/k/v/w [B,S,H,hd],
 // x [E,C,D] and w [E,D,F] for gmm); the kernels index them with their own
 // strides, so nothing is transposed or padded on the host and any
 // sequence length S (any C, D, F) is taken (the TPU kernels needed S a
@@ -18,20 +15,16 @@
 //
 // What bounds them on this card, at the main paths' shapes (S=4096):
 // causal attention does ~S/2 operations per byte of q, k and v, far above
-// the H100's bf16 ridge (~295), so it is bound by arithmetic; the SSD scan
-// does ~94 per byte and the WKV scan ~30, below the ridge, so their bound
-// is the bytes they move; gmm at qwen3-moe's expert shape sits at the
-// ridge.
+// the H100's bf16 ridge (~295), so it is bound by arithmetic; gmm at
+// qwen3-moe's expert shape sits at the ridge.
 //
-// In bf16, flash attention and gmm run on the tensor cores: wgmma fed by
-// TMA through a ring of shared-memory stages, a producer warpgroup and two
-// consumer warpgroups (flash_tc.cu, gmm_tc.cu; the notes there).  The
-// launchers below send bf16 there at every shape they take.  In fp32 both
-// stay on the fp32 CUDA cores here (the tensor cores take fp32 only as
-// TF32, which cannot meet the fp32 tolerances), as do the SSD and WKV
-// scans at both types: tiles staged in shared memory, sums kept in
-// registers, device memory read once per tile; these sit far above their
-// bounds.
+// In bf16 both run on the tensor cores: wgmma fed by TMA through a ring of
+// shared-memory stages, a producer warpgroup and two consumer warpgroups
+// (flash_tc.cu, gmm_tc.cu; the notes there).  The launchers below send
+// bf16 there at every shape they take.  In fp32 both stay on the fp32 CUDA
+// cores here (the tensor cores take fp32 only as TF32, which cannot meet
+// the fp32 tolerances): tiles staged in shared memory, sums kept in
+// registers, device memory read once per tile.
 //
 // Plain C interface (loaded with ctypes): each launcher takes device
 // pointers, sizes and the CUDA stream to launch on, and returns the
@@ -304,475 +297,6 @@ int flash_dispatch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Mamba2 chunked SSD scan
-// ---------------------------------------------------------------------------
-//
-// One block per (b, h); it walks the chunks of Q steps in order with the
-// state h [hd, N] in fp32 shared memory (the TPU kernel's sequential chunk
-// grid dimension becomes this loop).  Per chunk, as _ssd_kernel does:
-//
-//   cum_t  = sum_{s<=t} dt_s A                       (log decay)
-//   M[t,s] = (C_t . B_s) exp(cum_t - cum_s) dt_s     for s <= t
-//   y      = M @ x + (C exp(cum)) @ h^T
-//   h'     = h exp(cum_Q) + (x * dt exp(cum_Q - cum))^T @ B
-//
-// B and C are indexed by the batch row (shared across heads, the TPU
-// kernel's b // H index map), so they are never copied per head.  A
-// chunk's x, B^T, C^T and M are staged in shared memory (~180 KB at Q=128,
-// hd=64, N=64: above 48 KB, so the launcher raises the block's dynamic
-// shared-memory limit).  Rows past the end of the sequence are staged as
-// zeros: dt = 0 adds no decay, B = 0 and x = 0 add nothing, so a ragged
-// last chunk computes the same function.
-
-constexpr int kSsdThreads = 256;
-constexpr int kQMax = 128;
-constexpr int kQP = kQMax + 1;              // padded row stride
-
-__host__ __device__ constexpr int ssd_smem_floats(int hd, int n) {
-  return kQMax * hd + 2 * n * kQP + kQMax * kQP + hd * (n + 1) + 4 * kQMax;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kSsdThreads)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, const float* __restrict__ h0,
-               T* __restrict__ y, float* __restrict__ hout, int S, int H,
-               int N, int Q) {
-  extern __shared__ float sm[];
-  const int NP = N + 1;
-  float* xs = sm;                           // [kQMax][HD]
-  float* bt = xs + kQMax * HD;              // [N][kQP]   B^T
-  float* ct = bt + N * kQP;                 // [N][kQP]   C^T
-  float* ms = ct + N * kQP;                 // [kQMax][kQP]
-  float* hs = ms + kQMax * kQP;             // [HD][NP]
-  float* dts = hs + HD * NP;                // [kQMax]
-  float* cum = dts + kQMax;                 // [kQMax]
-  float* wts = cum + kQMax;                 // [kQMax] dt_s exp(cum_Q - cum_s)
-  float* ecum = wts + kQMax;                // [kQMax] exp(cum_t)
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const float a = A[h];
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < HD * N; idx += kSsdThreads) {
-    const int p = idx / N, n = idx - p * N;
-    hs[p * NP + n] = h0 ? h0[(long long)bh * HD * N + idx] : 0.f;
-  }
-
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    const int L = min(Q, S - c0);
-    __syncthreads();                        // the last chunk's readers are done
-    for (int idx = tid; idx < kQMax * HD; idx += kSsdThreads) {
-      const int t = idx / HD, p = idx - t * HD;
-      xs[idx] = t < L ? to_f(x[(((long long)b * S + c0 + t) * H + h) * HD + p])
-                      : 0.f;
-    }
-    for (int idx = tid; idx < kQMax * N; idx += kSsdThreads) {
-      const int t = idx / N, n = idx - t * N;
-      const long long g = ((long long)b * S + c0 + t) * N + n;
-      bt[n * kQP + t] = t < L ? to_f(Bm[g]) : 0.f;
-      ct[n * kQP + t] = t < L ? to_f(Cm[g]) : 0.f;
-    }
-    for (int t = tid; t < kQMax; t += kSsdThreads)
-      dts[t] = t < L ? dt[((long long)b * S + c0 + t) * H + h] : 0.f;
-    __syncthreads();
-
-    // cum: inclusive prefix sum of dt * A, in order, rounded as the plain
-    // version rounds (the product, then the sum; no fused multiply-add).
-    // A parallel scan would reach cum_t and cum_s through different partial
-    // sums, whose rounding (~ulp of |cum|) exp(cum_t - cum_s) would turn
-    // into relative errors even between neighbouring steps
-    if (tid == 0) {
-      float run = 0.f;
-      for (int t = 0; t < kQMax; ++t) {
-        run = __fadd_rn(run, __fmul_rn(dts[t], a));
-        cum[t] = run;
-      }
-    }
-    __syncthreads();
-    const float cum_last = cum[kQMax - 1];   // = cum[L - 1]: dt is 0 after
-
-    // M = (C B^T) * exp(cum_t - cum_s) * dt_s on and below the diagonal;
-    // thread tile t = ti + 16 a, s = si + 16 b
-    {
-      const int si = tid % 16, ti = tid / 16;
-      float cb[8][8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-#pragma unroll
-        for (int w = 0; w < 8; ++w) cb[u][w] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[8], bv[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) cv[u] = ct[n * kQP + ti + 16 * u];
-#pragma unroll
-        for (int w = 0; w < 8; ++w) bv[w] = bt[n * kQP + si + 16 * w];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-#pragma unroll
-          for (int w = 0; w < 8; ++w) cb[u][w] = fmaf(cv[u], bv[w], cb[u][w]);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int t = ti + 16 * u;
-#pragma unroll
-        for (int w = 0; w < 8; ++w) {
-          const int s = si + 16 * w;
-          ms[t * kQP + s] =
-              s <= t ? cb[u][w] * expf(cum[t] - cum[s]) * dts[s] : 0.f;
-        }
-      }
-      for (int t = tid; t < kQMax; t += kSsdThreads) {
-        wts[t] = expf(cum_last - cum[t]) * dts[t];
-        ecum[t] = expf(cum[t]);
-      }
-    }
-    __syncthreads();
-
-    // y = M @ x + (C exp(cum)) @ h^T; thread tile t = ti + 32 a,
-    // p = pi + 8 k
-    {
-      constexpr int KP = (HD + 7) / 8;
-      const int pi = tid % 8, ti = tid / 8;
-      float acc[4][KP];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < KP; ++w) acc[u][w] = 0.f;
-      for (int s = 0; s < kQMax; ++s) {
-        float mv[4], xv[KP];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) mv[u] = ms[(ti + 32 * u) * kQP + s];
-#pragma unroll
-        for (int w = 0; w < KP; ++w) xv[w] = xs[s * HD + pi + 8 * w];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int w = 0; w < KP; ++w) acc[u][w] = fmaf(mv[u], xv[w], acc[u][w]);
-      }
-      float ec[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) ec[u] = ecum[ti + 32 * u];
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[KP];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) cv[u] = ct[n * kQP + ti + 32 * u] * ec[u];
-#pragma unroll
-        for (int w = 0; w < KP; ++w) hv[w] = hs[(pi + 8 * w) * NP + n];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int w = 0; w < KP; ++w) acc[u][w] = fmaf(cv[u], hv[w], acc[u][w]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = ti + 32 * u;
-        if (t >= L) continue;
-        T* yr = y + (((long long)b * S + c0 + t) * H + h) * HD;
-#pragma unroll
-        for (int w = 0; w < KP; ++w) yr[pi + 8 * w] = from_f<T>(acc[u][w]);
-      }
-    }
-    __syncthreads();
-
-    // h' = h exp(cum_last) + (x * w)^T @ B; thread tile p = pj + 16 j,
-    // n = ni + 16 k
-    for (int idx = tid; idx < kQMax * HD; idx += kSsdThreads)
-      xs[idx] *= wts[idx / HD];
-    __syncthreads();
-    {
-      constexpr int JP = (HD + 15) / 16;
-      const int ni = tid % 16, pj = tid / 16;
-      const float decay = expf(cum_last);
-      float acc[JP][8];
-#pragma unroll
-      for (int j = 0; j < JP; ++j)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
-      for (int s = 0; s < kQMax; ++s) {
-        float xv[JP], bv[8];
-#pragma unroll
-        for (int j = 0; j < JP; ++j) xv[j] = xs[s * HD + pj + 16 * j];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int n = ni + 16 * k;
-          bv[k] = n < N ? bt[n * kQP + s] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < JP; ++j)
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(xv[j], bv[k], acc[j][k]);
-      }
-#pragma unroll
-      for (int j = 0; j < JP; ++j) {
-        const int p = pj + 16 * j;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int n = ni + 16 * k;
-          if (p < HD && n < N)
-            hs[p * NP + n] = hs[p * NP + n] * decay + acc[j][k];
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < HD * N; idx += kSsdThreads) {
-    const int p = idx / N, n = idx - p * N;
-    hout[(long long)bh * HD * N + idx] = hs[p * NP + n];
-  }
-}
-
-template <typename T, int HD>
-int ssd_launch_t(const void* x, const void* dt, const void* A, const void* Bm,
-                 const void* Cm, const void* h0, void* y, void* h, int B,
-                 int S, int H, int N, int Q, cudaStream_t stream) {
-  const int smem = ssd_smem_floats(HD, N) * (int)sizeof(float);
-  auto kern = ssd_fwd_kernel<T, HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<B * H, kSsdThreads, smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)A, (const T*)Bm,
-      (const T*)Cm, (const float*)h0, (T*)y, (float*)h, S, H, N, Q);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int ssd_dispatch(const void* x, const void* dt, const void* A, const void* Bm,
-                 const void* Cm, const void* h0, void* y, void* h, int B,
-                 int S, int H, int hd, int N, int Q, cudaStream_t st) {
-  switch (hd) {
-    case 16: return ssd_launch_t<T, 16>(x, dt, A, Bm, Cm, h0, y, h, B, S, H,
-                                        N, Q, st);
-    case 32: return ssd_launch_t<T, 32>(x, dt, A, Bm, Cm, h0, y, h, B, S, H,
-                                        N, Q, st);
-    case 64: return ssd_launch_t<T, 64>(x, dt, A, Bm, Cm, h0, y, h, B, S, H,
-                                        N, Q, st);
-    case 128: return ssd_launch_t<T, 128>(x, dt, A, Bm, Cm, h0, y, h, B, S,
-                                          H, N, Q, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// RWKV-6 chunked WKV scan
-// ---------------------------------------------------------------------------
-//
-// One block per (b, h); it walks the chunks of Q <= 32 steps in order with
-// the state S [hd, hd] in fp32 shared memory (the TPU kernel's sequential
-// chunk grid dimension becomes this loop).  Per chunk, as _wkv_kernel does:
-//
-//   lw       = max(log(max(w, 1e-30)), -60)         (clamped log decay)
-//   cum_t    = sum_{s<=t} lw_s,  cum_prev_t = cum_t - lw_t
-//   att[t,s] = sum_c r_tc k_sc exp(cum_prev_tc - cum_sc)   for s < t
-//   att[t,t] = sum_c r_tc u_c k_tc                          (the bonus)
-//   y        = att @ v + (r exp(cum_prev)) @ S
-//   S'       = S exp(cum_L) + (k exp(cum_L - cum))^T @ v
-//
-// The exponent of every pair that is kept is <= 0, and the pairs that are
-// not are never exponentiated, so strong decay stays finite.  The TPU
-// kernel builds the [Q, Q, hd] tensor of exponentials (256 KB at hd=64,
-// beyond a block's shared memory here); this kernel sums each att entry
-// over the channels in a register instead.  The chunk's r, k, v, cum and
-// cum_prev are staged as fp32 with a padded row stride (hd + 1: the
-// threads of a warp read different rows of one column without bank
-// conflicts): 62,336 bytes at hd=64.  Rows past the end of the sequence
-// are staged as zeros with lw = 0: no decay and nothing added, so a ragged
-// last chunk computes the same function.
-
-constexpr int kWkvThreads = 256;
-constexpr int kWkvQ = 32;
-
-__host__ __device__ constexpr int wkv_smem_floats(int hd) {
-  return 4 * kWkvQ * (hd + 1) + kWkvQ * hd + kWkvQ * (kWkvQ + 1) + hd * hd +
-         hd;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kWkvThreads)
-wkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ w,
-                const float* __restrict__ u, const void* __restrict__ s0,
-                int s0_kind, T* __restrict__ y, float* __restrict__ sout,
-                int S, int H, int Q) {
-  constexpr int RP = HD + 1;                // padded row stride
-  constexpr int AP = kWkvQ + 1;             // att row stride
-  constexpr int NG = kWkvThreads / HD;      // row groups (y, state update)
-  constexpr int RQ = kWkvQ / NG;            // y rows per thread
-  constexpr int RC = HD / NG;               // state rows per thread
-  extern __shared__ float sm[];
-  float* rs = sm;                           // [Q][RP] r, then r e^cum_prev
-  float* ks = rs + kWkvQ * RP;              // [Q][RP] k, then k e^(cum_L-cum)
-  float* cs = ks + kWkvQ * RP;              // [Q][RP] cum
-  float* ps = cs + kWkvQ * RP;              // [Q][RP] lw, then cum_prev
-  float* vs = ps + kWkvQ * RP;              // [Q][HD]
-  float* as = vs + kWkvQ * HD;              // [Q][AP] att
-  float* ss = as + kWkvQ * AP;              // [HD][HD] the state
-  float* us = ss + HD * HD;                 // [HD] the bonus
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const long long step = (long long)H * HD;          // one time step
-  const long long base = ((long long)b * S * H + h) * HD;
-  const long long sbase = (long long)bh * HD * HD;
-
-  for (int i = tid; i < HD * HD; i += kWkvThreads) {
-    float s = 0.f;
-    if (s0_kind == 1)
-      s = static_cast<const float*>(s0)[sbase + i];
-    else if (s0_kind == 2)
-      s = __bfloat162float(static_cast<const __nv_bfloat16*>(s0)[sbase + i]);
-    ss[i] = s;
-  }
-  for (int i = tid; i < HD; i += kWkvThreads) us[i] = u[h * HD + i];
-
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    const int L = min(Q, S - c0);
-    __syncthreads();                        // the last chunk's readers are done
-    for (int idx = tid; idx < kWkvQ * HD; idx += kWkvThreads) {
-      const int t = idx / HD, c = idx - t * HD;
-      const bool in = t < L;
-      const long long g = base + (c0 + t) * step + c;
-      rs[t * RP + c] = in ? to_f(r[g]) : 0.f;
-      ks[t * RP + c] = in ? to_f(k[g]) : 0.f;
-      vs[idx] = in ? to_f(v[g]) : 0.f;
-      ps[t * RP + c] = in ? fmaxf(logf(fmaxf(w[g], 1e-30f)), -60.f) : 0.f;
-    }
-    __syncthreads();
-
-    // cum and cum_prev per channel, summed in order and rounded as the
-    // plain version rounds them (cum_prev = cum - lw, not cum_{t-1}):
-    // exp(cum_prev_t - cum_s) turns their rounding into relative errors
-    for (int c = tid; c < HD; c += kWkvThreads) {
-      float run = 0.f;
-      for (int t = 0; t < kWkvQ; ++t) {
-        const float lw = ps[t * RP + c];
-        run = __fadd_rn(run, lw);
-        cs[t * RP + c] = run;
-        ps[t * RP + c] = __fsub_rn(run, lw);
-      }
-    }
-    __syncthreads();
-
-    // att: thread (t = tid / 8) and s = tid % 8 + 8 j, summed over c
-    {
-      const int t = tid / 8, lane = tid % 8;
-      const float* rt = rs + t * RP;
-      const float* pt = ps + t * RP;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = lane + 8 * j;
-        const float* kr = ks + s * RP;
-        const float* cr = cs + s * RP;
-        float a = 0.f;
-        if (s < t) {
-          for (int c = 0; c < HD; ++c)
-            a = fmaf(rt[c] * kr[c], expf(pt[c] - cr[c]), a);
-        } else if (s == t) {
-          for (int c = 0; c < HD; ++c) a = fmaf(rt[c] * us[c], kr[c], a);
-        }
-        as[t * AP + s] = a;
-      }
-    }
-    __syncthreads();
-
-    // r e^cum_prev and k e^(cum_L - cum), in place (cum_L: the last row,
-    // which padded rows carry unchanged)
-    for (int idx = tid; idx < kWkvQ * HD; idx += kWkvThreads) {
-      const int t = idx / HD, c = idx - t * HD;
-      const float cl = cs[(kWkvQ - 1) * RP + c];
-      rs[t * RP + c] *= expf(ps[t * RP + c]);
-      ks[t * RP + c] *= expf(cl - cs[t * RP + c]);
-    }
-    __syncthreads();
-
-    // y = att @ v + (r e^cum_prev) @ S; thread rows t = tg + NG i, column d
-    {
-      const int d = tid % HD, tg = tid / HD;
-      float acc[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) acc[i] = 0.f;
-      for (int s = 0; s < kWkvQ; ++s) {
-        const float vv = vs[s * HD + d];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-          acc[i] = fmaf(as[(tg + NG * i) * AP + s], vv, acc[i]);
-      }
-      for (int c = 0; c < HD; ++c) {
-        const float sv = ss[c * HD + d];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-          acc[i] = fmaf(rs[(tg + NG * i) * RP + c], sv, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const int t = tg + NG * i;
-        if (t < L) y[base + (c0 + t) * step + d] = from_f<T>(acc[i]);
-      }
-    }
-    __syncthreads();
-
-    // S' = S e^cum_L + (k e^(cum_L - cum))^T @ v; thread rows c = cg + NG i,
-    // column d
-    {
-      const int d = tid % HD, cg = tid / HD;
-      float acc[RC];
-#pragma unroll
-      for (int i = 0; i < RC; ++i) acc[i] = 0.f;
-      for (int s = 0; s < kWkvQ; ++s) {
-        const float vv = vs[s * HD + d];
-#pragma unroll
-        for (int i = 0; i < RC; ++i)
-          acc[i] = fmaf(ks[s * RP + cg + NG * i], vv, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < RC; ++i) {
-        const int c = cg + NG * i;
-        const float decay = expf(cs[(kWkvQ - 1) * RP + c]);
-        ss[c * HD + d] = fmaf(ss[c * HD + d], decay, acc[i]);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < HD * HD; i += kWkvThreads) sout[sbase + i] = ss[i];
-}
-
-template <typename T, int HD>
-int wkv6_launch_t(const void* r, const void* k, const void* v, const void* w,
-                  const void* u, const void* s0, int s0_kind, void* y,
-                  void* s, int B, int S, int H, int Q, cudaStream_t stream) {
-  const int smem = wkv_smem_floats(HD) * (int)sizeof(float);
-  auto kern = wkv6_fwd_kernel<T, HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<B * H, kWkvThreads, smem, stream>>>(
-      (const T*)r, (const T*)k, (const T*)v, (const float*)w,
-      (const float*)u, s0, s0_kind, (T*)y, (float*)s, S, H, Q);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int wkv6_dispatch(const void* r, const void* k, const void* v, const void* w,
-                  const void* u, const void* s0, int s0_kind, void* y,
-                  void* s, int B, int S, int H, int hd, int Q,
-                  cudaStream_t st) {
-  switch (hd) {
-    case 16: return wkv6_launch_t<T, 16>(r, k, v, w, u, s0, s0_kind, y, s, B,
-                                         S, H, Q, st);
-    case 32: return wkv6_launch_t<T, 32>(r, k, v, w, u, s0, s0_kind, y, s, B,
-                                         S, H, Q, st);
-    case 64: return wkv6_launch_t<T, 64>(r, k, v, w, u, s0, s0_kind, y, s, B,
-                                         S, H, Q, st);
-    case 128: return wkv6_launch_t<T, 128>(r, k, v, w, u, s0, s0_kind, y, s,
-                                           B, S, H, Q, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // grouped expert matmul
 // ---------------------------------------------------------------------------
 //
@@ -885,38 +409,6 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                               softcap, scale, st)
               : flash_dispatch<float>(q, k, v, out, B, S, H, KV, hd, causal,
                                       window, softcap, scale, st);
-}
-
-// x [B,S,H,hd] and B/C [B,S,N] bf16 (bf16 != 0) or fp32; dt [B,S,H],
-// A [H], h0 [B,H,hd,N] (or null: zeros) and h [B,H,hd,N] fp32;
-// y [B,S,H,hd] in x's type.  Chunks of Q <= 128 steps, N <= 128.
-int ssd_launch(const void* x, const void* dt, const void* A, const void* Bm,
-               const void* Cm, const void* h0, void* y, void* h, int B, int S,
-               int H, int hd, int N, int Q, int bf16, void* stream) {
-  if (B <= 0 || H <= 0) return 0;
-  if (Q < 1 || Q > kQMax || N < 1 || N > 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? ssd_dispatch<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y, h, B, S,
-                                            H, hd, N, Q, st)
-              : ssd_dispatch<float>(x, dt, A, Bm, Cm, h0, y, h, B, S, H, hd,
-                                    N, Q, st);
-}
-
-// r/k/v [B,S,H,hd] and y bf16 (bf16 != 0) or fp32; w [B,S,H,hd], u [H,hd]
-// and s [B,H,hd,hd] fp32; s0 [B,H,hd,hd] null (s0_kind 0: zeros), fp32
-// (1) or bf16 (2).  Chunks of Q <= 32 steps.
-int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
-                const void* u, const void* s0, void* y, void* s, int B, int S,
-                int H, int hd, int Q, int bf16, int s0_kind, void* stream) {
-  if (B <= 0 || H <= 0) return 0;
-  if (Q < 1 || Q > kWkvQ || s0_kind < 0 || s0_kind > 2 ||
-      (s0_kind != 0 && s0 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? wkv6_dispatch<__nv_bfloat16>(r, k, v, w, u, s0, s0_kind, y,
-                                             s, B, S, H, hd, Q, st)
-              : wkv6_dispatch<float>(r, k, v, w, u, s0, s0_kind, y, s, B, S,
-                                     H, hd, Q, st);
 }
 
 // x [E,C,D], w [E,D,F], y [E,C,F], all bf16 (bf16 != 0) or fp32.

@@ -1,18 +1,25 @@
-"""CUDA binding of the RWKV-6 chunked WKV scan (``csrc/model_kernels.cu``).
+"""CUDA binding of the RWKV-6 chunked WKV scan (``csrc/wkv_scan.cu``).
 
 Replaces the Pallas kernel ``wkv6_fwd`` of the JAX package
 (``repro/kernels/rwkv6_scan/kernel.py``), and takes an initial state as
-well (zeros when none is given).  One block per (batch row, head) walks
-the chunks of Q steps in order with the state S [hd, hd] in fp32 shared
-memory; per chunk the masked-exponent intra-chunk term, the diagonal bonus,
-the carried state's term and the state update, as ``_wkv_kernel`` computes
-them, without the [Q, Q, hd] pairwise tensor (the sums over channels stay
-in registers).  The log decay and its clamp are computed in the kernel.
-At B=2, S=4096, H=40, hd=64 it does some 30 operations per byte it must
-move, far below the H100's ridge, so its bound is the bytes; this first
-version computes on the fp32 CUDA cores, with only B*H blocks busy, and
-sits far above that bound.  Any S: a ragged last chunk is taken as it is
-(the TPU kernel dropped the steps past the last whole chunk).
+well (zeros when none is given).  The chunks of Q steps are cut into
+segments of G chunks (``_build.segments``): one call runs (A) each
+segment's local end state from zero with its per-channel decay, (B) a
+pass over the segments that turns those into each segment's start state,
+and (C) the chunk loop of every segment from its start state, writing y:
+B x H x segments blocks at once where the TPU kernel's sequential chunk
+grid gave B x H.  The state scratch is allocated here.  Per chunk the
+masked-exponent intra-chunk term, the diagonal bonus, the carried state's
+term and the state update, as ``_wkv_kernel`` computes them, without the
+[Q, Q, hd] pairwise tensor (the sums over channels stay in registers).
+The log decay and its clamp are computed in the kernel.  At B=2, S=4096,
+H=40, hd=64 it does some 30 operations per byte it must move, far below
+the H100's ridge, so its bound is the bytes.  bf16 keeps the per-pair
+exponentials on the CUDA cores and runs the three products on the tensor
+cores (``mma.sync``, every fp32 operand as two bf16 parts); fp32 runs on
+the CUDA cores with fp32 products; :data:`LAST_ROUTE` records which.  Any
+S: a ragged last chunk is taken as it is (the TPU kernel dropped the
+steps past the last whole chunk).
 """
 from __future__ import annotations
 
@@ -21,11 +28,19 @@ from typing import Optional, Tuple
 import torch
 
 from .. import LAUNCHES
-from .._build import launch, require_cuda_float
+from .._build import c_int, launch, require_cuda_float, segments
 
 #: head dims the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 32
+
+#: the kernel the last call launched, as the library recorded it after
+#: the launch: "tc" (bf16, products on the tensor cores)
+#: or "simt" (fp32, the CUDA cores); and its plan: chunks a segment,
+#: segments, bytes of state scratch
+LAST_ROUTE = None
+LAST_PLAN = None
+_ROUTES = {-1: None, 0: "simt", 1: "tc"}
 
 
 def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,10 +72,19 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.empty_like(r)
     s = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if B * H:
+        global LAST_ROUTE, LAST_PLAN
+        G, nseg = segments(-(-S // Q), B * H, r.device)
+        # per boundary between segments: a local state and its decay
+        n_loc = B * H * (nseg - 1) * hd * hd
+        scratch = torch.empty(n_loc + B * H * (nseg - 1) * hd,
+                              dtype=torch.float32, device=r.device)
         launch("wkv6_launch", r.data_ptr(), k.data_ptr(), v.data_ptr(),
                w.data_ptr(), u.data_ptr(),
                0 if s0 is None else s0.data_ptr(), y.data_ptr(),
-               s.data_ptr(), B, S, H, hd, Q,
-               int(r.dtype == torch.bfloat16), s0_kind)
+               s.data_ptr(), scratch.data_ptr(), scratch[n_loc:].data_ptr(),
+               B, S, H, hd, Q, G, int(r.dtype == torch.bfloat16), s0_kind)
         LAUNCHES["wkv6"] += 1
+        LAST_ROUTE = _ROUTES[c_int("wkv6_last_route")]
+        LAST_PLAN = {"chunks_per_segment": G, "segments": nseg,
+                     "scratch_bytes": 4 * scratch.numel()}
     return y, s

@@ -3,9 +3,10 @@ and the float ones (flash attention, the SSD scan, the WKV scan, the
 grouped matmul) within the tolerances of ``tests/test_kernels.py`` against
 their plain PyTorch versions, and the
 planned request path run on the card against the same path on the CPU.
-The bf16 tensor-core kernels (flash attention, gmm) are also held at every
-head dim and on both of gmm's routes, and to the plain version's error
-against a float64 recomputation.
+The bf16 tensor-core kernels (flash attention, gmm, the two scans) are
+also held at every head dim and on both of gmm's routes, on their routes
+(``LAST_ROUTE``), and to the plain version's error against a float64
+recomputation.
 Needs an NVIDIA card of compute capability 9.0 and ``nvcc``; skipped
 elsewhere:
 
@@ -222,6 +223,9 @@ def test_flash_attention_grad_on_card(cuda):
     (2, 300, 4, 32, 16, 128),             # ragged: chunks of 128, 128, 44
     (1, 1000, 2, 64, 64, 128),            # ragged
     (1, 96, 2, 128, 32, 128),
+    (2, 4096, 80, 64, 64, 128),           # zamba2's scoring shape
+    (2, 2700, 80, 64, 64, 128),           # 22 chunks in segments of 3
+    (1, 640, 3, 32, 100, 128),            # N padded to 128
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
@@ -239,6 +243,8 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, hd, N, chunk, dtype,
     y, h = ssd_ops.ssd(x, dt, A, Bc, Cc, h0=h0, chunk=chunk)
     torch.cuda.synchronize()
     assert launch_counts()["ssd"] == 1
+    assert ssd_kernel.LAST_ROUTE == ("tc" if dtype == torch.bfloat16
+                                     else "simt")
     y2, h2 = ssd_ref.ssd_ref(x, dt, A, Bc, Cc, h0=h0, chunk=chunk)
     atol = 4 * FLASH_ATOL[dtype]
     assert y.dtype == dtype and h.dtype == torch.float32
@@ -247,7 +253,8 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, hd, N, chunk, dtype,
 
 
 def _ssd_fp64(x, dt, A, Bc, Cc, Q):
-    """The chunked SSD in float64, as a yardstick of both fp32 versions."""
+    """The chunked SSD in float64, as a yardstick of both fp32 versions:
+    (y, the final state)."""
     x, dt, A, Bc, Cc = (t.double() for t in (x, dt, A, Bc, Cc))
     B, S, H, hd = x.shape
     h = torch.zeros(B, H, hd, Bc.shape[-1], dtype=torch.float64,
@@ -268,7 +275,7 @@ def _ssd_fp64(x, dt, A, Bc, Cc, Q):
         rem = torch.exp(cum[:, -1:] - cum) * dq
         h = h * torch.exp(cum[:, -1])[:, :, None, None] + torch.einsum(
             "bqhp,bqn->bhpn", xq * rem[..., None], bq)
-    return torch.cat(ys, 1)
+    return torch.cat(ys, 1), h
 
 
 def test_ssd_kernel_as_accurate_as_plain(cuda):
@@ -284,7 +291,7 @@ def test_ssd_kernel_as_accurate_as_plain(cuda):
     A = -torch.exp(torch.randn(H, generator=g) * 0.3).to(cuda)
     Bc = torch.randn(B, S, N, generator=g).to(cuda)
     Cc = torch.randn(B, S, N, generator=g).to(cuda)
-    y64 = _ssd_fp64(x, dt, A, Bc, Cc, 128)
+    y64, _ = _ssd_fp64(x, dt, A, Bc, Cc, 128)
     yk, _ = ssd_kernel.ssd_fwd(x, dt, A, Bc, Cc)
     yp, _ = ssd_ref.ssd_ref(x, dt, A, Bc, Cc)
     torch.cuda.synchronize()
@@ -334,6 +341,8 @@ def _wkv_inputs(B, S, H, hd, cuda, dtype=torch.float32, seed=0):
     (1, 96, 2, 32, 16),
     (1, 65, 2, 128, 32),
     (1, 7, 1, 64, 32),                    # one short chunk
+    (2, 4096, 40, 64, 32),                # rwkv6's scoring shape
+    (2, 1275, 40, 64, 32),                # 40 chunks in segments of 3
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s0_dtype", [None, torch.float32, torch.bfloat16])
@@ -345,6 +354,8 @@ def test_wkv6_kernel_matches_plain(cuda, B, S, H, hd, chunk, dtype,
     y, s = wkv_ops.wkv6(r, k, v, w, u, s0=s0, chunk=chunk)
     torch.cuda.synchronize()
     assert launch_counts()["wkv6"] == 1
+    assert wkv_kernel.LAST_ROUTE == ("tc" if dtype == torch.bfloat16
+                                     else "simt")
     y2, s2 = wkv_ref.wkv6_ref(r, k, v, w, u, s0=s0, chunk=chunk)
     atol = 4 * FLASH_ATOL[dtype]
     assert y.dtype == dtype and s.dtype == torch.float32
@@ -559,12 +570,18 @@ def _attention_fp64(q, k, v):
 def test_tensor_core_kernels_as_accurate_as_plain(cuda):
     """Error against float64, mean over the output, held to 1.5x the plain
     bf16 version's.  Both sum in fp32 and round the output to bf16, and
-    flash keeps P as two bf16 parts (~2^-17 of each weight), so the
-    output's rounding dominates both errors: they should be about equal.
+    flash keeps P as two bf16 parts (~2^-17 of each weight), as the scans
+    keep M, att, the decayed operands and the state, so the output's
+    rounding dominates both errors: they should be about equal.
     The factor leaves room for the kernels' other order of summation and
-    flash's base-2 exponentials, not for a second rounding of P (which
+    base-2 or fast exponentials, not for a second rounding of P (which
     alone would add an error of the output rounding's size, ~1.3x in the
-    mean)."""
+    mean).
+    The scans' final states stay fp32, so no output rounding hides their
+    products': two bf16 parts hold each operand to ~2^-17 where fp32 holds
+    it to 2^-24, so a state's error, mean and max, is held to 2^7 times
+    the plain version's (tests/test_torch_scans.py's rule); a state
+    product rounded once to bf16 (2^-9) would be ~2^15 times."""
     g = torch.Generator(device="cpu").manual_seed(13)
     bf = torch.bfloat16
     x = torch.randn(4, 256, 512, generator=g).to(cuda, bf)
@@ -577,8 +594,38 @@ def test_tensor_core_kernels_as_accurate_as_plain(cuda):
     o64 = _attention_fp64(q, k, v)
     ok = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
     op = fa_ref.attention_ref(q, k, v, causal=True)
+    # the scans: bf16 inputs (dt, A, w and u fp32), float64 yardsticks
+    sx = torch.randn(1, 1024, 8, 64, generator=g).to(cuda, bf)
+    sdt = torch.nn.functional.softplus(
+        torch.randn(1, 1024, 8, generator=g)).to(cuda)
+    sA = -torch.exp(torch.randn(8, generator=g) * 0.3).to(cuda)
+    sB, sC = (torch.randn(1, 1024, 64, generator=g).to(cuda, bf)
+              for _ in range(2))
+    s64, sh64 = _ssd_fp64(sx, sdt, sA, sB, sC, 128)
+    sk, shk = ssd_kernel.ssd_fwd(sx, sdt, sA, sB, sC)
+    assert ssd_kernel.LAST_ROUTE == "tc"
+    sp, shp = ssd_ref.ssd_ref(sx, sdt, sA, sB, sC)
+    wr, wk, wv = (torch.randn(1, 512, 4, 64, generator=g).to(cuda, bf)
+                  for _ in range(3))
+    ww = torch.exp(-torch.exp(torch.randn(1, 512, 4, 64, generator=g))
+                   ).to(cuda)
+    wu = (torch.randn(4, 64, generator=g) * 0.1).to(cuda)
+    w64, ws64 = _wkv_fp64(wr, wk, wv, ww, wu)
+    wkk, wsk = wkv_kernel.wkv6_fwd(wr, wk, wv, ww, wu)
+    assert wkv_kernel.LAST_ROUTE == "tc"
+    wp, wsp = wkv_ref.wkv6_ref(wr, wk, wv, ww, wu)
     torch.cuda.synchronize()
     for name, got, plain, want in (("gmm", yk, yp, y64),
-                                   ("flash", ok, op, o64)):
+                                   ("flash", ok, op, o64),
+                                   ("ssd", sk, sp, s64),
+                                   ("wkv6", wkk, wp, w64)):
         ek, ep = ((t.double() - want).abs().mean() for t in (got, plain))
         assert ek <= 1.5 * ep, (name, float(ek), float(ep))
+    for name, got, plain, want in (("ssd h", shk, shp, sh64),
+                                   ("wkv6 S", wsk, wsp, ws64)):
+        assert got.dtype == plain.dtype == torch.float32, name
+        ek, ep = ((t.double() - want).abs() for t in (got, plain))
+        assert ek.mean() <= 128 * ep.mean(), (name, float(ek.mean()),
+                                              float(ep.mean()))
+        assert ek.max() <= 128 * ep.max(), (name, float(ek.max()),
+                                            float(ep.max()))

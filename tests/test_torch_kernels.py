@@ -595,6 +595,38 @@ def test_launcher_signatures_match_bindings():
     assert seen == {k: len(v) - 1 for k, v in sigs.items()}
 
 
+def test_route_exports_match_bindings():
+    """A binding's ``LAST_ROUTE`` is read from an int its library exports
+    (``_build.c_int``): that int is defined once, with C linkage, and
+    every value the sources assign it names a route in the binding's
+    table (-1: nothing launched yet, or the launch failed)."""
+    import ast
+    import importlib
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    texts = [(_build.CSRC / s).read_text() for s in _build.SOURCES]
+    read = {}
+    for path in Path(_build.__file__).parent.glob("*/kernel.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "c_int":
+                read[node.args[0].value] = path.parent.name
+    assert set(read) == {"gmm_last_route", "ssd_last_route",
+                         "wkv6_last_route"}
+    for name, pkg in read.items():
+        defined = [t for t in texts
+                   if re.search(rf"^int {name} = -?\d+;", t, re.M)]
+        assert len(defined) == 1, name
+        text = defined[0]
+        assert re.search(rf"^int {name} = ", text[text.index(
+            'extern "C" {'):], re.M), f"{name}: no C linkage"
+        values = {int(v) for v in re.findall(rf"\b{name} = (-?\d+);", text)}
+        routes = importlib.import_module(
+            f"repro_torch.kernels.{pkg}.kernel")._ROUTES
+        assert values and values <= set(routes), (name, values, routes)
+
+
 # ---------------------------------------------------------------------------
 # the build: what its hash covers, and the generated wgmma wrappers
 # ---------------------------------------------------------------------------
