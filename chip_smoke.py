@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--seed 0] [--bulk 1000000] [--ops 20000]
     python3 chip_smoke.py --scan-times [--src DIR] [--tag NAME] [--profile]
+    python3 chip_smoke.py --meta-times [--src DIR] [--tag NAME] [--profile]
 
 Drives the ported paths, the metadata request path (phases 2-4), the
 zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
@@ -17,10 +18,14 @@ any failure raises and the script exits non-zero:
    inputs: phash over 1,048,576 keys, phash_chain at N=4096, D=16,
    pkval against a 2^23-slot index with ~1M live entries, tombstones and
    AMBIG buckets (65,536 probes, padding parents included), hintchain over
-   client and fallback tables at N=4096, D=16, treeagg over 1,048,576
+   65,536-slot client and fallback tables at N=4096, D=16 (route
+   ``global``) and over the main path's 64 + 8,192 slots at N=1,024
+   (route ``smem``, the tables in shared memory), treeagg over 1,048,576
    inode slots (runs of children, other parents, cleared slots, sums that
-   wrap) against a wave of 4,096 directories.  Times are CUDA-event
-   medians of 20 launches after warm-up.
+   wrap) against a wave of 4,096 directories in its seg form, and in its
+   compact form (the children's ids compacted on the card) against waves
+   of 4,096 and of 1.  Times are CUDA-event medians of 20 launches after
+   warm-up.
 3. The main path at deployment size: a columnar store on the card with 4
    datanodes and 4 namenodes, the Spotify-shaped namespace (127
    directories x 16 files) created through the op path plus a bulk
@@ -34,7 +39,9 @@ any failure raises and the script exits non-zero:
    namespace (a treeagg launch per wave) and a ``DFSClient.batch()`` of
    1,024 stats served from the namenode's hint cache.  The launch counts
    are set to 0 just before and read just after: each of the five
-   kernels must have run.
+   kernels must have run, every hintchain launch on route ``smem``.
+   The host time in the kernels' wrappers is reported per wrapper, with
+   treeagg's calls whose wave holds at least BIG_WAVE children apart.
    Each kernel's first main-path call is recorded and replayed against the
    plain version: those shapes give the JSON line's times and bounds.
 4. Checks: the same build, trace, du and batch on the host (plain
@@ -119,6 +126,15 @@ any failure raises and the script exits non-zero:
 The line before the last is the kernels' JSON (nine kernels), the last
 line the device JSON.  Without a CUDA device, or outside the repository,
 it exits non-zero and prints no result.
+
+``--meta-times`` runs none of the phases either: it holds the two
+redesigned metadata kernels, treeagg (the form its main path launches)
+and hintchain, against their plain versions at their main-path shapes
+(META_CASES: the first wave of a subtree op over 1,002,162 slots, the
+wave that holds ``/bulk``'s million files, a planner window) and times
+the kernel and its wrapper (inputs to the card, launch, results back),
+one JSON line a case (``--profile`` adds the launch's CUDA kernels by
+``torch.profiler``); with ``--src`` as below.
 
 ``--scan-times`` runs none of the phases: it holds the two chunked scans,
 ``ssd`` and ``wkv6``, against their plain versions at the model paths'
@@ -296,16 +312,35 @@ def work_hintchain(cp, cn, cv, fp, fn, fv, names, depths, root_id=1, **_):
                  6 * probed + 4 * steps)
 
 
-def work_treeagg(wave, par, isdir, size):
-    """Every slot's parent read and seg written; is_dir and size read for
-    the children found; the wave read and three sums per member written.
-    Operations: a compare and a halving per search step of each live slot
-    and three adds per child."""
-    w, c = wave.numel(), par.numel()
+def _treeagg_hits(wave, par):
+    """(children, directories among them, live slots) of these inputs."""
+    w = wave.numel()
     seg = torch.searchsorted(wave, par)
-    hits = int(((par >= 0) & (seg < w) & (wave[seg.clamp(max=max(w - 1, 0))]
-                                          == par)).sum()) if w else 0
-    live = int((par >= 0).sum())
+    hit = ((par >= 0) & (seg < w) & (wave[seg.clamp(max=max(w - 1, 0))]
+                                     == par)) if w else par < -1
+    return int(hit.sum()), hit, int((par >= 0).sum())
+
+
+def work_treeagg(wave, ids, par, isdir, size):
+    """The compact form, as the main path runs it: every slot's parent
+    read; is_dir, size and id read for the children found; the wave read,
+    three sums per member and the counts written, each child's id written
+    and each directory's once more.  Operations: a compare and a halving
+    per search step of each live slot and three adds per child."""
+    w, c = wave.numel(), par.numel()
+    hits, hit, live = _treeagg_hits(wave, par)
+    n_dirs = int((isdir[hit] == 1).sum())
+    return bound(4 * w + 4 * c + 16 * hits + 12 * w + 8 + 8 * hits
+                 + 8 * n_dirs,
+                 live * 3 * max(1, w.bit_length()) + 3 * hits)
+
+
+def work_treeagg_seg(wave, par, isdir, size):
+    """The seg form: every slot's parent read and seg written; is_dir and
+    size read for the children found; the wave read and three sums per
+    member written."""
+    w, c = wave.numel(), par.numel()
+    hits, _, live = _treeagg_hits(wave, par)
     return bound(4 * w + 4 * c + 8 * hits + 4 * c + 12 * w,
                  live * 3 * max(1, w.bit_length()) + 3 * hits)
 
@@ -344,20 +379,29 @@ def synthetic_index(rng, cap: int, n_live: int):
     return (tp, tn, tv), par, nam
 
 
-def synthetic_hint_tables(rng, n_ops: int, depth: int = 16):
-    """Client and fallback hint tables over a random tree, and n_ops chains
-    walking down it (mixed depths, 0 included)."""
+def synthetic_hint_tables(rng, n_ops: int, depth: int = 16,
+                          n_nodes: int = 20_000, client_max: int = None,
+                          caps=(64, 64)):
+    """Client and fallback hint tables over a random tree of n_nodes, and
+    n_ops chains walking down it (mixed depths, 0 included); the client
+    table holds at most client_max edges (its others go to the fallback);
+    the tables start at caps slots and grow as their inserts need."""
     from repro_torch.core.columnar import AMBIG, HashIndex
     from repro_torch.core.workload import name_hash32
-    n_nodes = 20_000
     parents = np.concatenate([[0, 0], rng.integers(
         np.maximum(1, np.arange(2, n_nodes) // 3), np.arange(2, n_nodes))])
     kids = {i: [] for i in range(n_nodes)}
-    client, fallback = HashIndex(), HashIndex()
+    client, fallback = HashIndex(caps[0]), HashIndex(caps[1])
+    n_client = 0
     for iid in range(2, n_nodes):
         par, h = int(parents[iid]), name_hash32(f"n{iid}")
         kids[par].append((h, iid))
         r = rng.random()
+        to_client = r < 0.45 or 0.85 <= r < 0.9 or r >= 0.95
+        if to_client and client_max is not None:
+            if n_client >= client_max:
+                r = 0.5                  # the client is full: the fallback
+            n_client += 1
         if r < 0.45:
             client.set(par, h, iid)
         elif r < 0.85:
@@ -404,7 +448,10 @@ def phase_kernels(seed: int, dev) -> None:
     rng = np.random.default_rng(seed)
     cases = {}
     keys = i32(rng.integers(0, 1 << 32, size=1 << 20), dev)
-    cases["phash"] = (pk.phash, pr.phash_ref, (keys, 64), {}, work_phash)
+    # name: (kernel, plain version, args, kwargs, work, read the kernel's
+    # output back to the plain version's form, route the kernel must take)
+    cases["phash"] = (pk.phash, pr.phash_ref, (keys, 64), {}, work_phash,
+                      None, None)
     n, d = 4096, 16
     par = i32(rng.integers(0, 1 << 32, size=(n, d)), dev)
     nam = i32(rng.integers(0, 1 << 32, size=(n, d)), dev)
@@ -412,7 +459,8 @@ def phase_kernels(seed: int, dev) -> None:
     dep = i32(rng.integers(0, d + 1, size=n), dev)
     dep[:64] = 0
     cases["phash_chain"] = (pk.phash_chain, pr.phash_chain_ref,
-                            (par, nam, hints, dep, 64), {}, work_phash_chain)
+                            (par, nam, hints, dep, 64), {}, work_phash_chain,
+                            None, None)
     (tp, tn, tv), kpar, knam = synthetic_index(rng, 1 << 23, 1_050_000)
     m = 1 << 16
     pick = rng.integers(0, kpar.size, size=m)
@@ -422,18 +470,43 @@ def phase_kernels(seed: int, dev) -> None:
     ppar[r > 0.95] = -1                                # padding parents
     idx = tuple(i32(a, dev) for a in (tp, tn, tv))
     cases["pkval"] = (vk.pkval, vr.pkval_ref,
-                      idx + (i32(ppar, dev), i32(pnam, dev)), {}, work_pkval)
-    client, fallback, hnames, hdep = synthetic_hint_tables(rng, 4096)
-    tabs = tuple(i32(a, dev) for a in (*client.arrays(), *fallback.arrays()))
-    cases["hintchain"] = (hk.hintchain, hr.hintchain_ref,
-                          tabs + (i32(hnames, dev), i32(hdep, dev)),
-                          {"root_id": 1}, work_hintchain)
+                      idx + (i32(ppar, dev), i32(pnam, dev)), {}, work_pkval,
+                      None, None)
+    for name, hint_kw, route in (
+            ("hintchain", {"n_ops": 4096}, "global"),
+            ("hintchain main-path shape", {
+                "n_ops": 1024, "n_nodes": 2000, "client_max": 24,
+                "caps": (64, 8192)}, "smem")):
+        client, fallback, hnames, hdep = synthetic_hint_tables(rng,
+                                                               **hint_kw)
+        if route == "smem" and (client.cap, fallback.cap) != (64, 8192):
+            raise AssertionError(f"{name}: tables of {client.cap} and "
+                                 f"{fallback.cap} slots, not 64 and 8,192")
+        tabs = tuple(i32(a, dev) for a in (*client.arrays(),
+                                            *fallback.arrays()))
+        cases[name] = (hk.hintchain, hr.hintchain_ref,
+                       tabs + (i32(hnames, dev), i32(hdep, dev)),
+                       {"root_id": 1}, work_hintchain, None, route)
     slots = synthetic_slots(rng, 1 << 20, 4096)
     cases["treeagg"] = (tk.treeagg, tr.treeagg_ref,
-                        tuple(i32(a, dev) for a in slots), {}, work_treeagg)
-    for name, (kern, plain, args, kw, work) in cases.items():
+                        tuple(i32(a, dev) for a in slots), {},
+                        work_treeagg_seg, None, None)
+    for w in (4096, 1):
+        wave, par, isdir, size = synthetic_slots(rng, 1 << 20, w)
+        ids = torch.from_numpy(rng.permutation(1 << 20) + 2).to(dev)
+        cases[f"treeagg compact W={w}"] = (
+            tk.treeagg_compact, tr.treeagg_expand_ref,
+            (i32(wave, dev), ids, *(i32(a, dev) for a in (par, isdir, size))),
+            {}, work_treeagg,
+            lambda out, w=w: tk.unpack(out, w, 1 << 20), None)
+    for name, (kern, plain, args, kw, work, read, route) in cases.items():
         got, want = kern(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
+        if route is not None and hk.LAST_ROUTE != route:
+            raise AssertionError(f"{name}: route {hk.LAST_ROUTE}, not "
+                                 f"{route}")
+        if read is not None:
+            got, want = read(got), tuple(t.cpu() for t in want)
         if not same(got, want):
             raise AssertionError(f"{name}: kernel != plain version")
         ms = device_ms(lambda: kern(*args, **kw))
@@ -441,9 +514,11 @@ def phase_kernels(seed: int, dev) -> None:
         plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=5, warmup=1)
         b_ms, b_by, n_bytes, n_ops = work(*args, **kw)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        extra = f" route={route}" if route else ""
         log(f"phase2 {name}: bit-equal shapes={shapes} ms={ms:.6f} "
             f"call_ms={call_ms:.6f} plain_ms={plain_ms:.6f} "
-            f"bound_ms={b_ms:.6f} ({b_by}; bytes={n_bytes} ops={n_ops})")
+            f"bound_ms={b_ms:.6f} ({b_by}; bytes={n_bytes} ops={n_ops})"
+            f"{extra}")
     live = int((tp >= 0).sum())
     log(f"phase2 pkval index: cap={tp.size} live={live} "
         f"tombstones={int((tp == -2).sum())} ambig={int((tv == -3).sum())}")
@@ -454,9 +529,11 @@ def phase_kernels(seed: int, dev) -> None:
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Keeps a copy of each kernel binding's first call on the main path,
-    and the host time spent in the request path's kernel wrappers (inputs
-    to the card, launch, results back) and in the index mirror's refresh."""
+    """Keeps a copy of each kernel binding's first call on the main path
+    (treeagg's is its compact form's) and the route of every hintchain
+    launch, and the host time spent in the request path's kernel wrappers
+    (inputs to the card, launch, results back) and in the index mirror's
+    refresh."""
 
     def __init__(self):
         from repro_torch.core.columnar import ColumnarTable, HashIndex
@@ -466,10 +543,14 @@ class Recorder:
         from repro_torch.kernels.treeagg import kernel as tk, ops as to
         self.calls = {}
         self.host_s = {}
+        self.hint_routes = []
+        self.hint_slots = []              # (client, fallback) a launch
+        self.big_waves = (0, 0.0)
+        self._hk = hk
         self._orig = []
         for mod, name in ((pk, "phash"), (pk, "phash_chain"),
                           (vk, "pkval"), (hk, "hintchain"),
-                          (tk, "treeagg")):
+                          (tk, "treeagg_compact")):
             self._patch(mod, name, self._record)
         for mod, name in ((po, "phash_partitions"), (po, "phash_chains"),
                           (vo, "pkval_lookup"), (ho, "hintchain_resolve"),
@@ -485,26 +566,43 @@ class Recorder:
 
     def _record(self, name, real):
         def rec(*args, **kw):
-            if name not in self.calls:
+            if name not in self.calls:        # an output buffer is not input
                 self.calls[name] = (tuple(a.clone() if torch.is_tensor(a)
-                                          else a for a in args), dict(kw))
-            return real(*args, **kw)
+                                          else a for a in args),
+                                    {k: v for k, v in kw.items()
+                                     if k != "out"})
+            res = real(*args, **kw)
+            if name == "hintchain":
+                self.hint_routes.append(self._hk.LAST_ROUTE)
+                self.hint_slots.append((args[0].numel(), args[3].numel()))
+            return res
         return rec
 
     def _time(self, name, real):
         def timed(*args, **kw):
             t0 = time.perf_counter()
+            res = None
             try:
-                return real(*args, **kw)
+                res = real(*args, **kw)
+                return res
             finally:
+                dt = time.perf_counter() - t0
                 n, s = self.host_s.get(name, (0, 0.0))
-                self.host_s[name] = (n + 1, s + time.perf_counter() - t0)
+                self.host_s[name] = (n + 1, s + dt)
+                if name == "treeagg_expand" and res is not None \
+                        and len(res[3]) >= BIG_WAVE:
+                    n, s = self.big_waves
+                    self.big_waves = (n + 1, s + dt)
         return timed
 
     def restore(self):
         for owner, name, real in self._orig:
             setattr(owner, name, real)
 
+
+#: phase 3 reports apart the treeagg_expand calls whose wave has at least
+#: this many children (the waves that hold /bulk's million files)
+BIG_WAVE = 100_000
 
 #: each namenode's subtree pool: waves scanned and chunks committed one at
 #: a time.  The wave scans of the thread pool merge their costs into one
@@ -1564,6 +1662,94 @@ def scan_times(tag: str, profile: bool, seed: int, dev) -> None:
         torch.cuda.empty_cache()
 
 
+#: --meta-times: (kernel, case) at the metadata path's shapes (phase 3):
+#: a subtree op's wave of one small directory (W=1) and the wave that holds
+#: /bulk (W=128, a million children) over 1,002,162 inode slots, and
+#: planner windows (N=1,024, D=16) over the first window's 64 + 8,192
+#: slots and over the largest snapshots of the replay, 4,096 + 16,384
+META_CASES = (("treeagg", "first wave W=1"), ("treeagg", "/bulk wave W=128"),
+              ("hintchain", "first window 64+8192"),
+              ("hintchain", "late window 4096+16384"))
+META_SLOTS = 1_002_162
+
+
+def meta_columns(rng):
+    """Inode hot columns shaped as phase 3's store (host arrays): a
+    namespace of 217 directories and their files, then /bulk's files,
+    a few cleared slots; ids are slot + 1, the root is id 1."""
+    c, n_dirs, n_ns = META_SLOTS, 217, 2_162
+    ids = np.arange(1, c + 1, dtype=np.int64)
+    par = np.empty(c, np.int64)
+    par[0] = 0
+    par[1:n_dirs] = rng.integers(1, np.arange(2, n_dirs + 1))
+    par[n_dirs:n_ns] = rng.integers(2, n_dirs + 1, size=n_ns - n_dirs)
+    par[n_dirs:n_dirs + 16] = 5                  # a small directory
+    par[n_ns:] = n_dirs                          # /bulk is the last dir
+    par[rng.random(c) < 0.005] = -1              # deleted inodes
+    isdir = (np.arange(c) < n_dirs) & (par >= 0)
+    size = np.where(par >= 0, rng.integers(0, 1 << 20, size=c), 0)
+    return ids, par, isdir, size
+
+
+def meta_times(tag: str, profile: bool, seed: int, dev) -> None:
+    """--meta-times: each of META_CASES through its wrapper on the card and
+    on the host (equal), the kernel's device time and the wrapper's host
+    time a call, then one JSON line."""
+    from repro_torch.kernels.hintchain import kernel as hk, ops as ho
+    from repro_torch.kernels.treeagg import kernel as tk, ops as to
+    rng = np.random.default_rng(seed)
+    ids, par, isdir, size = meta_columns(rng)
+    host = (torch.from_numpy(ids),
+            *(torch.from_numpy(a.astype(np.int32)) for a in (par, isdir,
+                                                              size)))
+    card_cols = tuple(t.to(dev) for t in host)
+    for kernel, case in META_CASES:
+        if kernel == "treeagg":
+            wave = np.array([5]) if case.endswith("W=1") else np.unique(
+                np.concatenate([rng.choice(np.arange(2, 217), 127,
+                                           replace=False), [217]]))
+            wrap = (to.treeagg_expand, (wave, *card_cols), {})
+            plain = to.treeagg_expand(wave, *host)
+            w_card = i32(wave, dev)
+            # the binding the main path of this repro_torch launches
+            launch_ = (lambda: tk.treeagg_compact(w_card, *card_cols)) \
+                if hasattr(tk, "treeagg_compact") \
+                else (lambda: tk.treeagg(w_card, *card_cols[1:]))
+        else:
+            late = "4096" in case
+            client, fallback, names, depths = synthetic_hint_tables(
+                rng, 1024, n_nodes=4000 if late else 2000,
+                client_max=1000 if late else 24,
+                caps=(4096, 16384) if late else (64, 8192))
+            wrap = (ho.hintchain_resolve, (client.arrays(),
+                                           fallback.arrays(), names, depths),
+                    {"device": dev})
+            plain = ho.hintchain_resolve(client.arrays(), fallback.arrays(),
+                                         names, depths, device="cpu")
+            args = tuple(i32(a, dev) for a in (*client.arrays(),
+                                                *fallback.arrays(), names,
+                                                depths))
+            launch_ = (lambda: hk.hintchain(*args))
+        fn, a, kw = wrap
+        got = fn(*a, **kw)
+        if len(got) != len(plain) or not all(
+                np.array_equal(x, y) for x, y in zip(got, plain)):
+            raise AssertionError(f"--meta-times {case}: card != host")
+        ms = device_ms(launch_)
+        calls = []
+        for _ in range(25):
+            t0 = time.perf_counter()
+            fn(*a, **kw)
+            calls.append(time.perf_counter() - t0)
+        row = {"tag": tag, "kernel": kernel, "case": case, "ms": ms,
+               "wrapper_ms": statistics.median(calls[5:]) * 1e3,
+               "route": getattr(hk, "LAST_ROUTE", None)
+               if kernel == "hintchain" else None}
+        if profile:
+            row["kernels_us"] = kernel_us(launch_)
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1571,13 +1757,17 @@ def main() -> int:
     ap.add_argument("--ops", type=int, default=20_000)
     ap.add_argument("--scan-times", action="store_true",
                     help="time the two chunked scans only")
+    ap.add_argument("--meta-times", action="store_true",
+                    help="time the redesigned metadata kernels only")
     ap.add_argument("--src", default=str(ROOT / "src"),
-                    help="with --scan-times: where repro_torch is imported "
-                    "from")
+                    help="with --scan-times or --meta-times: where "
+                    "repro_torch is imported from")
     ap.add_argument("--tag", default="this",
-                    help="with --scan-times: the name of its JSON lines")
+                    help="with --scan-times or --meta-times: the name of "
+                    "its JSON lines")
     ap.add_argument("--profile", action="store_true",
-                    help="with --scan-times: each call's CUDA kernels")
+                    help="with --scan-times or --meta-times: each call's "
+                    "CUDA kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on "
@@ -1601,6 +1791,9 @@ def main() -> int:
         f"{_build.build_info['path']}")
     if args.scan_times:
         scan_times(args.tag, args.profile, args.seed, dev)
+        return 0
+    if args.meta_times:
+        meta_times(args.tag, args.profile, args.seed, dev)
         return 0
     for line in str(_build.build_info["log"]).splitlines():
         if "registers" in line or "spill" in line or "C75" in line:
@@ -1641,29 +1834,43 @@ def main() -> int:
     log("phase3 host time in kernel wrappers: " + ", ".join(
         f"{k} {n} calls {t:.4f} s" for k, (n, t) in rec.host_s.items())
         + f"; {in_kernels:.4f} s of {wall:.3f} s trace+du+batch wall "
-        f"({100 * in_kernels / wall:.2f}%)")
+        f"({100 * in_kernels / wall:.2f}%); treeagg_expand calls with "
+        f">= {BIG_WAVE} children: {rec.big_waves[0]} calls "
+        f"{rec.big_waves[1]:.4f} s")
     log(f"phase3 launches: {json.dumps(launches)} peak_device_bytes="
         f"{torch.cuda.max_memory_allocated()}")
     missing = [k for k in REPLACES if launches[k] < 1]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    if len(rec.hint_routes) != launches["hintchain"] \
+            or set(rec.hint_routes) != {"smem"}:
+        raise AssertionError(f"hintchain routes on the main path: "
+                             f"{rec.hint_routes}, not all smem")
+    log(f"phase3 hintchain routes: {len(rec.hint_routes)} launches, all "
+        f"smem; client + fallback slots a launch: "
+        + ", ".join(f"{c}+{f}" for c, f in rec.hint_slots))
 
     # kernels vs plain on the main path's own inputs
     from repro_torch.kernels.hintchain import kernel as hk, ref as hr
     from repro_torch.kernels.phash import kernel as pk, ref as pr
     from repro_torch.kernels.pkval import kernel as vk, ref as vr
     from repro_torch.kernels.treeagg import kernel as tk, ref as tr
-    pairs = {"phash": (pk.phash, pr.phash_ref, work_phash),
+    pairs = {"phash": (pk.phash, pr.phash_ref, work_phash, "phash"),
              "phash_chain": (pk.phash_chain, pr.phash_chain_ref,
-                             work_phash_chain),
-             "pkval": (vk.pkval, vr.pkval_ref, work_pkval),
-             "hintchain": (hk.hintchain, hr.hintchain_ref, work_hintchain),
-             "treeagg": (tk.treeagg, tr.treeagg_ref, work_treeagg)}
+                             work_phash_chain, "phash_chain"),
+             "pkval": (vk.pkval, vr.pkval_ref, work_pkval, "pkval"),
+             "hintchain": (hk.hintchain, hr.hintchain_ref, work_hintchain,
+                           "hintchain"),
+             "treeagg": (tk.treeagg_compact, tr.treeagg_expand_ref,
+                         work_treeagg, "treeagg_compact")}
     rows = []
-    for name, (kern, plain, work) in pairs.items():
-        a, kw = rec.calls[name]
+    for name, (kern, plain, work, binding) in pairs.items():
+        a, kw = rec.calls[binding]
         got, want = kern(*a, **kw), plain(*a, **kw)
         torch.cuda.synchronize()
+        if binding == "treeagg_compact":
+            got = tk.unpack(got, a[0].numel(), a[2].numel())
+            want = tuple(t.cpu() for t in want)
         if not same(got, want):
             raise AssertionError(f"{name}: kernel != plain on main path")
         ms = device_ms(lambda: kern(*a, **kw))
@@ -1671,10 +1878,11 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: plain(*a, **kw), reps=5, warmup=1)
         b_ms, b_by, n_bytes, n_ops = work(*a, **kw)
         shapes = [tuple(t.shape) for t in a if torch.is_tensor(t)]
+        extra = f" route={hk.LAST_ROUTE}" if name == "hintchain" else ""
         log(f"phase3 {name}: first main-path call shapes={shapes} "
             f"bit-equal ms={ms:.6f} call_ms={call_ms:.6f} "
             f"plain_ms={plain_ms:.6f} bound_ms={b_ms:.6f} "
-            f"({b_by}; bytes={n_bytes} ops={n_ops})")
+            f"({b_by}; bytes={n_bytes} ops={n_ops}){extra}")
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name],
                      "launches": launches[name],

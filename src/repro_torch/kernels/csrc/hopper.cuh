@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gmm_tc.cu, flash_tc.cu, ssd_scan.cu, wkv_scan.cu): mbarriers, TMA loads
+// (gmm_tc.cu, flash_tc.cu, ssd_scan.cu, wkv_scan.cu) and the hint-chain
+// walk (metadata_kernels.cu): mbarriers, TMA loads (tiles and 1-D bulk)
 // and stores, wgmma shared-memory descriptors and fences, register
 // reallocation between warpgroups, the warp-level mma.sync and ldmatrix
 // with the swizzle of their tiles, cp.async, the split of fp32 values into
@@ -87,6 +88,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// The TMA's 1-D form: `bytes` contiguous bytes from global to shared
+// memory, completing on `bar`.  Both addresses 16-byte aligned, `bytes` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // TMA store of a box from shared memory (bulk group completion): only the

@@ -9,12 +9,14 @@
 //   treeagg      repro/kernels/treeagg/kernel.py    treeagg
 //
 // and compute the same functions bit for bit.  Every value is a 32-bit
-// integer; uint32 keys and name hashes travel as int32 bit patterns and are
-// reinterpreted here.  All five are bound by device-memory traffic (a few
-// integer operations per byte), so each is one thread per output row with a
-// grid-stride loop; the hash-table probes and the wave search read their
-// read-only tables through the non-coherent cache (__ldg).  Nothing is
-// padded: the kernels take any n.
+// integer (inode ids, which treeagg hands back, are int64); uint32 keys and
+// name hashes travel as int32 bit patterns and are reinterpreted here.
+// phash, phash_chain and pkval are bound by device-memory traffic (a few
+// integer operations per byte): each is one thread per output row with a
+// grid-stride loop, its hash-table probes through the non-coherent cache
+// (__ldg).  hintchain and treeagg were redesigned for Hopper; their own
+// notes below say what bounds each and what the design does about it.
+// Nothing is padded: the kernels take any n.
 //
 // Plain C interface (loaded with ctypes): each launcher takes device
 // pointers, sizes and the CUDA stream to launch on, and returns the
@@ -22,6 +24,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -107,105 +113,577 @@ __global__ void pkval_kernel(const int32_t* __restrict__ tp,
                          max_probe);
 }
 
-// One thread per op: walk the op's chain from root_id, one depth per step,
-// probing the client table and then the fallback table.  A client answer
-// other than a miss wins, an AMBIG (-3) answer included; child -3 tells the
-// host to resolve that op again exactly.  Past the op's depth or its first
-// miss: child -2, src -1.
-__global__ void hintchain_kernel(
-    const int32_t* __restrict__ cp, const int32_t* __restrict__ cn,
-    const int32_t* __restrict__ cv, uint32_t cmask,
-    const int32_t* __restrict__ fp, const int32_t* __restrict__ fn,
-    const int32_t* __restrict__ fv, uint32_t fmask,
+// --- hintchain ---------------------------------------------------------------
+//
+// A walk is a chain of D dependent probe steps, so the kernel is bound by
+// the latency of each step, not by bytes.  Route smem (the probe keys of
+// both tables, parent and name, 8 bytes a slot, fit in kHcSmemCap): each
+// block first copies the key arrays into shared memory by the TMA's 1-D
+// bulk copy onto one mbarrier, and the value arrays too where all 12 bytes
+// a slot fit; then it walks its ops there, one shared-memory round trip a
+// probe step (and one read of a value from device memory for each key
+// found, where the values stayed there).  Route global (larger tables):
+// the same walk through the non-coherent cache.  On both, a depth's client
+// and fallback probes run interleaved, their loads issued before either
+// answer is used.  Blocks are small (kHcThreads), so that a window of a
+// thousand ops spreads over 16 SMs.
+
+constexpr int kHcThreads = 64;
+constexpr long long kHcSmemCap = 200 * 1024;   // table bytes on route smem
+constexpr int kHcRow = 16;                     // names a thread holds at once
+
+template <bool kSmem>
+__device__ __forceinline__ int32_t ld_table(const int32_t* p) {
+  if (kSmem) return *p;
+  return __ldg(p);
+}
+
+// probe_table for (par, nam) in the client and the fallback table at once:
+// each step loads both tables' slot before comparing either.  Keys (tp,
+// tn) in shared memory where kKeys, values (tv) where kVals.
+template <bool kKeys, bool kVals>
+__device__ __forceinline__ void probe_both(
+    const int32_t* cp, const int32_t* cn, const int32_t* cv, uint32_t cmask,
+    const int32_t* fp, const int32_t* fn, const int32_t* fv, uint32_t fmask,
+    int32_t par, uint32_t nam, int max_probe, int32_t& cval,
+    int32_t& fval) {
+  cval = kEmpty;
+  fval = kEmpty;
+  if (par < 0) return;
+  uint32_t h = ((uint32_t)par * kGolden) ^ (nam * kGolden2);
+  h ^= h >> 16;
+  bool cgo = true, fgo = true;
+  int32_t jc_hit = -1, jf_hit = -1;
+  for (int step = 0; step < max_probe && (cgo || fgo); ++step) {
+    const uint32_t jc = (h + (uint32_t)step) & cmask;
+    const uint32_t jf = (h + (uint32_t)step) & fmask;
+    const int32_t ec = ld_table<kKeys>(cp + jc), ef = ld_table<kKeys>(fp + jf);
+    const uint32_t nc = (uint32_t)ld_table<kKeys>(cn + jc);
+    const uint32_t nf = (uint32_t)ld_table<kKeys>(fn + jf);
+    if (cgo) {
+      if (ec >= 0 && ec == par && nc == nam) {
+        jc_hit = (int32_t)jc;
+        cgo = false;
+      } else if (ec == kEmpty) {
+        cgo = false;
+      }
+    }
+    if (fgo) {
+      if (ef >= 0 && ef == par && nf == nam) {
+        jf_hit = (int32_t)jf;
+        fgo = false;
+      } else if (ef == kEmpty) {
+        fgo = false;
+      }
+    }
+  }
+  // the two values, read together
+  if (jc_hit >= 0) cval = ld_table<kVals>(cv + jc_hit);
+  if (jf_hit >= 0) fval = ld_table<kVals>(fv + jf_hit);
+}
+
+// Ints of one table array in shared memory: a whole number of 16 bytes.
+__host__ __device__ __forceinline__ long long hc_span(long long cap) {
+  return (cap + 3) & ~3LL;
+}
+
+// One thread per op: walk the op's chain from root_id, one depth per step.
+// A client answer other than a miss wins, an AMBIG (-3) answer included;
+// child -3 tells the host to resolve that op again exactly.  Past the op's
+// depth or its first miss: child -2, src -1.  out holds child [n, depth]
+// then src [n, depth]; names are read and rows written as int4 where vec
+// (depth a multiple of 4, names and out 16-byte aligned).
+template <bool kKeys, bool kVals>
+__global__ void __launch_bounds__(kHcThreads) hintchain_kernel(
+    const int32_t* __restrict__ gcp, const int32_t* __restrict__ gcn,
+    const int32_t* __restrict__ gcv, long long ccap,
+    const int32_t* __restrict__ gfp, const int32_t* __restrict__ gfn,
+    const int32_t* __restrict__ gfv, long long fcap,
     const int32_t* __restrict__ names, const int32_t* __restrict__ depths,
-    int32_t* __restrict__ child, int32_t* __restrict__ src, long long n,
-    int depth, int32_t root_id, int max_probe) {
+    int32_t* __restrict__ out, long long n, int depth, int32_t root_id,
+    int max_probe, int vec) {
+  extern __shared__ __align__(128) int32_t hsm[];
+  __shared__ __align__(8) uint64_t bar;
+  // client par, nam, val, fallback par, nam, val
+  const int32_t* tab[6] = {gcp, gcn, gcv, gfp, gfn, gfv};
+  uint32_t bulk = 0;                 // bytes the bulk copies bring
+  if (kKeys) {
+    // the keys (and the values where kVals) of both tables: each array by
+    // one bulk copy where it is 16-byte aligned and a whole number of 16
+    // bytes (capacities are powers of two: all but 1 and 2 slots), else
+    // by plain loads
+    constexpr int kArrays = kVals ? 6 : 4;
+    const int which[6] = {0, 3, 1, 4, 2, 5};    // keys first, then values
+    const long long cs = hc_span(ccap), fs = hc_span(fcap);
+    long long off[6];
+    off[0] = 0;
+    for (int a = 1; a < kArrays; ++a)
+      off[a] = off[a - 1] + (which[a - 1] < 3 ? cs : fs);
+    bool by_bulk[6];
+#pragma unroll
+    for (int a = 0; a < kArrays; ++a) {
+      const long long bytes = 4 * (which[a] < 3 ? ccap : fcap);
+      by_bulk[a] = bytes % 16 == 0 && (uintptr_t)tab[which[a]] % 16 == 0;
+      if (by_bulk[a]) bulk += (uint32_t)bytes;
+    }
+    const uint32_t b = tc::smem_u32(&bar);
+    if (threadIdx.x == 0 && bulk) {
+      tc::mbar_init(b, 1);
+      tc::mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && bulk) {
+      tc::mbar_expect_tx(b, bulk);
+#pragma unroll
+      for (int a = 0; a < kArrays; ++a)
+        if (by_bulk[a])
+          tc::bulk_load_1d(tc::smem_u32(hsm + off[a]), tab[which[a]],
+                           (uint32_t)(4 * (which[a] < 3 ? ccap : fcap)), b);
+    }
+#pragma unroll
+    for (int a = 0; a < kArrays; ++a)
+      if (!by_bulk[a])
+        for (long long j = threadIdx.x; j < (which[a] < 3 ? ccap : fcap);
+             j += blockDim.x)
+          hsm[off[a] + j] = tab[which[a]][j];
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < kArrays; ++a) tab[which[a]] = hsm + off[a];
+  }
+  const uint32_t cmask = (uint32_t)(ccap - 1), fmask = (uint32_t)(fcap - 1);
   for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < n;
        r += (long long)gridDim.x * blockDim.x) {
     const int32_t dep = depths[r];
-    const long long base = r * depth;
+    const int32_t* nrow = names + r * depth;
+    int32_t* crow = out + r * depth;
+    int32_t* srow = out + n * depth + r * depth;
     int32_t parent = root_id;
     bool alive = dep > 0;
-    for (int d = 0; d < depth; ++d) {
-      int32_t c = -2, s = -1;
-      if (alive && d < dep) {
-        const uint32_t nam = (uint32_t)names[base + d];
-        const int32_t cval =
-            probe_table(cp, cn, cv, cmask, parent, nam, max_probe);
-        const int32_t val =
-            cval != kEmpty
-                ? cval
-                : probe_table(fp, fn, fv, fmask, parent, nam, max_probe);
-        c = val;
-        if (val > 0) {
-          s = cval > 0 ? 0 : 1;
-          parent = val;
+    for (int d0 = 0; d0 < depth; d0 += kHcRow) {
+      const int len = min(kHcRow, depth - d0);
+      int32_t nm[kHcRow], c[kHcRow], s[kHcRow];
+#pragma unroll
+      for (int q = 0; q < kHcRow; q += 4) {
+        if (vec && q < len) {
+          const int4 x = __ldg(reinterpret_cast<const int4*>(nrow + d0 + q));
+          nm[q] = x.x;
+          nm[q + 1] = x.y;
+          nm[q + 2] = x.z;
+          nm[q + 3] = x.w;
+        } else {
+#pragma unroll
+          for (int k = q; k < q + 4; ++k)
+            nm[k] = k < len ? __ldg(nrow + d0 + k) : 0;
+        }
+      }
+      // the bulk copies land while the block's first names are read
+      if (bulk) {
+        tc::mbar_wait(tc::smem_u32(&bar), 0);
+        bulk = 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kHcRow; ++k) {
+        int32_t ck = -2, sk = -1;
+        if (alive && k < len && d0 + k < dep) {
+          int32_t cval, fval;
+          probe_both<kKeys, kVals>(tab[0], tab[1], tab[2], cmask, tab[3],
+                                   tab[4], tab[5], fmask, parent,
+                                   (uint32_t)nm[k], max_probe, cval, fval);
+          const int32_t val = cval != kEmpty ? cval : fval;
+          ck = val;
+          if (val > 0) {
+            sk = cval > 0 ? 0 : 1;
+            parent = val;
+          } else {
+            alive = false;
+          }
         } else {
           alive = false;
         }
-      } else {
-        alive = false;
+        c[k] = ck;
+        s[k] = sk;
       }
-      child[base + d] = c;
-      src[base + d] = s;
+#pragma unroll
+      for (int q = 0; q < kHcRow; q += 4) {
+        if (vec && q < len) {
+          *reinterpret_cast<int4*>(crow + d0 + q) =
+              make_int4(c[q], c[q + 1], c[q + 2], c[q + 3]);
+          *reinterpret_cast<int4*>(srow + d0 + q) =
+              make_int4(s[q], s[q + 1], s[q + 2], s[q + 3]);
+        } else {
+#pragma unroll
+          for (int k = q; k < q + 4; ++k)
+            if (k < len) {
+              crow[d0 + k] = c[k];
+              srow[d0 + k] = s[k];
+            }
+        }
+      }
     }
   }
 }
 
-// One thread per inode-table slot.  A lower-bound search of the slot's
-// parent in the sorted wave gives the wave member the slot is a child of
-// (seg; -1 = none, cleared slots carry parent -1).  The per-member sums of
-// 1, is_dir and size are warp-aggregated before the atomics: the lanes of a
-// warp that found the same member add their values with __reduce_add_sync
-// and one of them adds the warp's share, so a directory with a million
-// children costs ~n/32 atomics on its counters rather than n.  Sums wrap
-// modulo 2^32 like the TPU kernel's int32 sums, in any order.  The whole
-// warp walks the grid-stride loop together (the loop runs over warp bases),
-// so every lane takes part in the warp-wide intrinsics.
-__global__ void treeagg_kernel(
-    const int32_t* __restrict__ wave, int w, const int32_t* __restrict__ par,
+// --- treeagg -----------------------------------------------------------------
+//
+// Every inode-table slot's parent is looked up in the sorted wave (a lower
+// bound: the wave member the slot is a child of, or none; cleared slots
+// carry parent -1), and each member gets the sums of 1, is_dir and size
+// over its children, wrapping modulo 2^32 like the TPU kernel's int32 sums.
+//
+// Bound by reading par (4 bytes a slot; the children's other columns are
+// read only for them).  A tile is kTaThreads threads x kTaVecs int4 loads
+// of par (4,096 slots); persistent blocks, as many as fit on the card,
+// take tiles from an atomic ticket, so a tile's predecessors have always
+// started.  Up to kWaveSmemCap members the wave and the per-member sums
+// sit in shared memory (each block adds its sums to the output once, at
+// its end), above it the search and the sums go to device memory.  Within
+// a thread, children of one member in a row are summed in registers
+// before one atomic; at the end the warp's lanes that hold one member
+// combine theirs (__match_any_sync, __reduce_add_sync).
+//
+// Two forms.  The seg form writes seg [n] (the member of every slot, -1
+// none) and the sums.  The compact form writes no seg: it hands the
+// children to the caller in slot order, compacted in the same pass by a
+// single-pass scan with decoupled look-back (Merrill and Garland): each
+// tile publishes its count of children and of directories among them in a
+// status word, first alone (kAgg), then with all its predecessors'
+// (kIncl); a tile's offset is the sum of its predecessors' words back to
+// the nearest inclusive one.  Within a tile each warp takes a run of
+// slots, int4 by int4, and offsets come from ballots of each int4's four
+// slots and a scan of the warps' totals.
+//
+// out: counts [w] | dirs [w] | sizes [w] | n_children | n_dirs | ticket,
+// then (compact) a status word per tile at status_off; at mid_off the
+// children's ids (int64) from mid[0] on, the directories' ids among them
+// backwards from mid[-1], so that both are one contiguous span.  The
+// launcher zeroes the sums, counts, ticket and status words.
+
+constexpr int kTaThreads = 256;
+constexpr int kTaWarps = kTaThreads / 32;
+constexpr int kTaVecs = 4;
+constexpr int kTileSlots = kTaThreads * kTaVecs * 4;
+constexpr int kWaveSmemCap = 8192;
+constexpr unsigned long long kAgg = 1ull << 62, kIncl = 2ull << 62;
+constexpr unsigned long long kValue = kAgg - 1;   // children << 31 | dirs
+static_assert(kTaWarps <= 32, "one warp scans the tile's warp totals");
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Warp 0: the tile's exclusive prefix (children << 31 | dirs) over tiles
+// 0..t-1, from their status words, 32 at a time, nearest first.
+// Publishes the tile's inclusive word.  A word that never becomes ready (a
+// fault) traps after ~5 s, so the launch fails instead of hanging the card.
+__device__ __forceinline__ unsigned long long look_back(
+    unsigned long long* status, long long t, unsigned long long mine,
+    int lane) {
+  if (t == 0) {
+    if (lane == 0) st_relaxed(status, kIncl | mine);
+    return 0;
+  }
+  if (lane == 0) st_relaxed(status + t, kAgg | mine);
+  unsigned long long excl = 0;
+  for (long long j = t - 1;; j -= 32) {
+    const long long k = j - lane;
+    unsigned long long s = kIncl;            // before tile 0: nothing
+    if (k >= 0) {
+      long long t0 = 0;
+      while (((s = ld_relaxed(status + k)) >> 62) == 0) {
+        const long long now = clock64();
+        if (t0 == 0) t0 = now;
+        else if (now - t0 > 10000000000LL) __trap();
+      }
+    }
+    const unsigned incl = __ballot_sync(0xffffffffu, (s >> 62) == 2);
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    unsigned long long v = lane <= stop ? (s & kValue) : 0;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (incl) break;
+  }
+  if (lane == 0) st_relaxed(status + t, kIncl | (excl + mine));
+  return excl;
+}
+
+// col[q..q+3] into out[] where any of the four slots is a child (m >= 0),
+// as one 16-byte load where vec; zeros elsewhere.
+__device__ __forceinline__ void load4(const int32_t* __restrict__ col,
+                                      long long q, long long n, int vec,
+                                      const int* m, int32_t* out) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = 0;
+  if (max(max(m[0], m[1]), max(m[2], m[3])) < 0) return;
+  if (vec && q + 3 < n) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(col + q));
+    out[0] = m[0] >= 0 ? x.x : 0;
+    out[1] = m[1] >= 0 ? x.y : 0;
+    out[2] = m[2] >= 0 ? x.z : 0;
+    out[3] = m[3] >= 0 ? x.w : 0;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (m[k] >= 0) out[k] = __ldg(col + q + k);
+  }
+}
+
+template <bool kSmemWave, bool kSeg>
+__global__ void __launch_bounds__(kTaThreads) treeagg_kernel(
+    const int32_t* __restrict__ gwave, int w, const int32_t* __restrict__ par,
     const int32_t* __restrict__ isdir, const int32_t* __restrict__ size,
-    int32_t* __restrict__ seg, int32_t* __restrict__ counts,
-    int32_t* __restrict__ dirs, int32_t* __restrict__ sizes, long long n) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long base = blockIdx.x * (long long)blockDim.x + threadIdx.x - lane;
-       base < n; base += stride) {
-    const long long i = base + lane;
-    int32_t s = -1;
-    uint32_t d = 0, z = 0;
-    if (i < n) {
-      const int32_t p = par[i];
-      if (p >= 0) {
-        int lo = 0, hi = w;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (__ldg(wave + mid) < p) lo = mid + 1; else hi = mid;
+    const long long* __restrict__ ids, int32_t* __restrict__ seg,
+    int32_t* __restrict__ out, unsigned long long* __restrict__ status,
+    long long* __restrict__ mid, long long n, int vec) {
+  extern __shared__ __align__(16) int32_t tsm[];   // wave, counts, dirs, sizes
+  __shared__ int s_hits[32], s_dirs[32];    // per warp, then scanned
+  __shared__ long long s_tile;
+  __shared__ unsigned long long s_base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1;
+  const int32_t* wave = gwave;
+  unsigned* acc = reinterpret_cast<unsigned*>(out);   // counts, dirs, sizes
+  if (kSmemWave) {
+    for (int i = tid; i < w; i += kTaThreads) {
+      tsm[i] = gwave[i];
+      tsm[w + i] = tsm[2 * w + i] = tsm[3 * w + i] = 0;
+    }
+    wave = tsm;
+    acc = reinterpret_cast<unsigned*>(tsm + w);
+  }
+  __syncthreads();
+  const int32_t lo_id = w ? wave[0] : 0, hi_id = w ? wave[w - 1] : -1;
+  const long long n_tiles = (n + kTileSlots - 1) / kTileSlots;
+  unsigned* ticket = reinterpret_cast<unsigned*>(out + 3 * w + 2);
+  int cur = -1;                 // the member whose run this thread sums
+  unsigned rc = 0, rd = 0, rz = 0;
+  for (;;) {
+    if (tid == 0) s_tile = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const long long t = s_tile;
+    if (t >= n_tiles) break;
+    const long long base = t * kTileSlots;
+    // m: each slot's parent, then its member.  Every load of par first,
+    // so that all of the tile's reads are in flight at once.
+    int m[kTaVecs][4], dv[kTaVecs][4];
+#pragma unroll
+    for (int v = 0; v < kTaVecs; ++v) {
+      const long long q = base + 4LL * ((warp * kTaVecs + v) * 32 + lane);
+      if (vec && q + 3 < n) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(par + q));
+        m[v][0] = x.x;
+        m[v][1] = x.y;
+        m[v][2] = x.z;
+        m[v][3] = x.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          m[v][k] = q + k < n ? __ldg(par + q + k) : -1;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kTaVecs; ++v) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int32_t p = m[v][k];
+        int s = -1;
+        if (p >= lo_id && p <= hi_id && p >= 0) {
+          int a = 0, b = w;
+          while (a < b) {
+            const int c = (a + b) >> 1;
+            const int32_t x = kSmemWave ? wave[c] : __ldg(wave + c);
+            if (x < p) a = c + 1; else b = c;
+          }
+          if ((kSmemWave ? wave[a] : __ldg(wave + a)) == p) s = a;
         }
-        if (lo < w && __ldg(wave + lo) == p) s = lo;
-      }
-      seg[i] = s;
-      if (s >= 0) {
-        d = (uint32_t)isdir[i];
-        z = (uint32_t)size[i];
+        m[v][k] = s;
       }
     }
-    const unsigned group = __match_any_sync(0xffffffffu, s);
-    if (s >= 0) {
-      const uint32_t dsum = __reduce_add_sync(group, d);
-      const uint32_t zsum = __reduce_add_sync(group, z);
-      if (lane == __ffs(group) - 1) {
-        atomicAdd((unsigned*)counts + s, (unsigned)__popc(group));
-        atomicAdd((unsigned*)dirs + s, dsum);
-        atomicAdd((unsigned*)sizes + s, zsum);
+#pragma unroll
+    for (int v = 0; v < kTaVecs; ++v) {
+      const long long q = base + 4LL * ((warp * kTaVecs + v) * 32 + lane);
+      // is_dir of the children: one 16-byte load for the four slots where
+      // any is a child
+      load4(isdir, q, n, vec, m[v], dv[v]);
+      if (kSeg) {
+        if (vec && q + 3 < n) {
+          *reinterpret_cast<int4*>(seg + q) =
+              make_int4(m[v][0], m[v][1], m[v][2], m[v][3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (q + k < n) seg[q + k] = m[v][k];
+        }
       }
     }
+    if (!kSeg) {
+      // this lane's first child (directory) of each int4 among the
+      // warp's: the warp's run of slots goes int4 by int4, lanes in order
+      int hoff[kTaVecs], doff[kTaVecs];
+      int th = 0, td = 0;
+#pragma unroll
+      for (int v = 0; v < kTaVecs; ++v) {
+        hoff[v] = th;
+        doff[v] = td;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const unsigned bh = __ballot_sync(0xffffffffu, m[v][k] >= 0);
+          const unsigned bd =
+              __ballot_sync(0xffffffffu, m[v][k] >= 0 && dv[v][k] == 1);
+          th += __popc(bh);
+          td += __popc(bd);
+          hoff[v] += __popc(bh & lt);
+          doff[v] += __popc(bd & lt);
+        }
+      }
+      if (lane == 0) {
+        s_hits[warp] = th;
+        s_dirs[warp] = td;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const int h0 = lane < kTaWarps ? s_hits[lane] : 0;
+        const int d0 = lane < kTaWarps ? s_dirs[lane] : 0;
+        int h = h0, d = d0;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int hx = __shfl_up_sync(0xffffffffu, h, o);
+          const int dx = __shfl_up_sync(0xffffffffu, d, o);
+          if (lane >= o) {
+            h += hx;
+            d += dx;
+          }
+        }
+        if (lane < kTaWarps) {
+          s_hits[lane] = h - h0;
+          s_dirs[lane] = d - d0;
+        }
+        const unsigned long long mine =
+            ((unsigned long long)__shfl_sync(0xffffffffu, h, 31) << 31) |
+            (unsigned)__shfl_sync(0xffffffffu, d, 31);
+        const unsigned long long excl = look_back(status, t, mine, lane);
+        if (lane == 0) {
+          s_base = excl;
+          if (t == n_tiles - 1) {
+            const unsigned long long all = excl + mine;
+            out[3 * w] = (int32_t)(all >> 31);
+            out[3 * w + 1] = (int32_t)(all & 0x7fffffff);
+          }
+        }
+      }
+      __syncthreads();
+      const long long bh = (long long)(s_base >> 31);
+      const long long bd = (long long)(s_base & 0x7fffffff);
+#pragma unroll
+      for (int v = 0; v < kTaVecs; ++v) {
+        const long long q = base + 4LL * ((warp * kTaVecs + v) * 32 + lane);
+        long long ph = bh + s_hits[warp] + hoff[v];
+        long long pd = bd + s_dirs[warp] + doff[v];
+        if (max(max(m[v][0], m[v][1]), max(m[v][2], m[v][3])) < 0) continue;
+        long long id[4];
+        if (vec && q + 3 < n) {
+          const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(
+                              ids + q));
+          const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(
+                              ids + q + 2));
+          id[0] = a.x;
+          id[1] = a.y;
+          id[2] = b.x;
+          id[3] = b.y;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) id[k] = m[v][k] >= 0 ? ids[q + k] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (m[v][k] < 0) continue;
+          mid[ph++] = id[k];
+          if (dv[v][k] == 1) mid[-1 - pd++] = id[k];
+        }
+      }
+    }
+    int32_t z[kTaVecs][4];
+#pragma unroll
+    for (int v = 0; v < kTaVecs; ++v)
+      load4(size, base + 4LL * ((warp * kTaVecs + v) * 32 + lane), n, vec,
+            m[v], z[v]);
+#pragma unroll
+    for (int v = 0; v < kTaVecs; ++v) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int s = m[v][k];
+        if (s < 0) continue;
+        if (s != cur) {
+          if (cur >= 0) {
+            atomicAdd(acc + cur, rc);
+            atomicAdd(acc + w + cur, rd);
+            atomicAdd(acc + 2 * w + cur, rz);
+          }
+          cur = s;
+          rc = rd = rz = 0;
+        }
+        rc += 1;
+        rd += (unsigned)dv[v][k];
+        rz += (unsigned)z[v][k];
+      }
+    }
+    __syncthreads();            // s_tile, s_hits and s_dirs are reused
+  }
+  const unsigned group = __match_any_sync(0xffffffffu, cur);
+  if (cur >= 0) {
+    const unsigned c = __reduce_add_sync(group, rc);
+    const unsigned d = __reduce_add_sync(group, rd);
+    const unsigned z = __reduce_add_sync(group, rz);
+    if (lane == __ffs(group) - 1) {
+      atomicAdd(acc + cur, c);
+      atomicAdd(acc + w + cur, d);
+      atomicAdd(acc + 2 * w + cur, z);
+    }
+  }
+  if (kSmemWave) {
+    __syncthreads();
+    unsigned* sums = reinterpret_cast<unsigned*>(out);
+    for (int i = tid; i < w; i += kTaThreads)
+      if (acc[i]) {
+        atomicAdd(sums + i, acc[i]);
+        atomicAdd(sums + w + i, acc[w + i]);
+        atomicAdd(sums + 2 * w + i, acc[2 * w + i]);
+      }
   }
 }
 
 inline unsigned grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+// How many blocks of `kern` (`threads` threads, `smem` bytes of dynamic
+// shared memory) the card holds at once, at least 1: the grid of a kernel
+// whose blocks must all be resident, or that pays a fixed cost a block.
+template <typename Kern>
+cudaError_t resident_blocks(Kern kern, int threads, int smem,
+                            long long* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  *blocks = std::max(1, sms * per_sm);
+  return e;
 }
 
 }  // namespace
@@ -243,30 +721,80 @@ int pkval_launch(const void* tp, const void* tn, const void* tv,
   return (int)cudaGetLastError();
 }
 
+// The route of the last hintchain launch: 0 global, 1 smem (-1: none yet,
+// or the launch failed).
+int hintchain_last_route = -1;
+
+// out: child [n, depth] then src [n, depth].
 int hintchain_launch(const void* cp, const void* cn, const void* cv,
                      long long ccap, const void* fp, const void* fn,
                      const void* fv, long long fcap, const void* names,
-                     const void* depths, void* child, void* src, long long n,
-                     int depth, int root_id, int max_probe, void* stream) {
+                     const void* depths, void* out, long long n, int depth,
+                     int root_id, int max_probe, void* stream) {
+  hintchain_last_route = -1;
   if (n <= 0) return 0;
-  hintchain_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)cp, (const int32_t*)cn, (const int32_t*)cv,
-      (uint32_t)(ccap - 1), (const int32_t*)fp, (const int32_t*)fn,
-      (const int32_t*)fv, (uint32_t)(fcap - 1), (const int32_t*)names,
-      (const int32_t*)depths, (int32_t*)child, (int32_t*)src, n, depth,
-      root_id, max_probe);
-  return (int)cudaGetLastError();
+  const int vec = depth % 4 == 0 && (uintptr_t)names % 16 == 0 &&
+                  (uintptr_t)out % 16 == 0;
+  const long long keys = 8 * (hc_span(ccap) + hc_span(fcap));
+  const long long all = keys + keys / 2;
+  const bool in_smem = keys <= kHcSmemCap, vals = all <= kHcSmemCap;
+  auto kern = !in_smem ? hintchain_kernel<false, false>
+              : vals   ? hintchain_kernel<true, true>
+                       : hintchain_kernel<true, false>;
+  const int smem = !in_smem ? 0 : (int)(vals ? all : keys);
+  long long blocks = (n + kHcThreads - 1) / kHcThreads;
+  if (in_smem) {
+    // every block copies the tables: no more blocks than fit at once
+    long long fit = 0;
+    const cudaError_t e = resident_blocks(kern, kHcThreads, smem, &fit);
+    if (e != cudaSuccess) return (int)e;
+    blocks = std::min(blocks, fit);
+  } else {
+    blocks = std::min(blocks, kMaxBlocks);
+  }
+  kern<<<(unsigned)blocks, kHcThreads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)cp, (const int32_t*)cn, (const int32_t*)cv, ccap,
+      (const int32_t*)fp, (const int32_t*)fn, (const int32_t*)fv, fcap,
+      (const int32_t*)names, (const int32_t*)depths, (int32_t*)out, n, depth,
+      root_id, max_probe, vec);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (in_smem) hintchain_last_route = 1;
+  else hintchain_last_route = 0;
+  return 0;
 }
 
-// counts, dirs and sizes must hold zeros: the kernel adds into them.
+// seg != null: the seg form (seg [n]; ids unused), else the compact form.
+// out as treeagg_kernel lays it out; status_off and mid_off in ints.  The
+// sums, counts, ticket and (compact) status words are zeroed here first.
 int treeagg_launch(const void* wave, int w, const void* par, const void* isdir,
-                   const void* size, void* seg, void* counts, void* dirs,
-                   void* sizes, long long n, void* stream) {
-  if (n <= 0) return 0;
-  treeagg_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+                   const void* size, const void* ids, void* seg, void* out,
+                   long long status_off, long long mid_off, long long n,
+                   void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n_tiles = (n + kTileSlots - 1) / kTileSlots;
+  const long long zero = seg ? status_off : status_off + 2 * n_tiles;
+  cudaError_t e = cudaMemsetAsync(out, 0, 4 * zero, st);
+  if (e != cudaSuccess || n <= 0) return (int)e;
+  const bool in_smem = w <= kWaveSmemCap;
+  const int smem = in_smem ? 16 * w : 0;
+  const int vec = ((uintptr_t)par | (uintptr_t)isdir | (uintptr_t)size |
+                   (uintptr_t)ids | (uintptr_t)seg) % 16 == 0;
+  auto kern = in_smem ? (seg ? treeagg_kernel<true, true>
+                             : treeagg_kernel<true, false>)
+                      : (seg ? treeagg_kernel<false, true>
+                             : treeagg_kernel<false, false>);
+  // persistent blocks, all resident at once: tiles by ticket
+  long long fit = 0;
+  e = resident_blocks(kern, kTaThreads, smem, &fit);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = std::min(n_tiles, fit);
+  int32_t* o = (int32_t*)out;
+  kern<<<(unsigned)blocks, kTaThreads, smem, st>>>(
       (const int32_t*)wave, w, (const int32_t*)par, (const int32_t*)isdir,
-      (const int32_t*)size, (int32_t*)seg, (int32_t*)counts, (int32_t*)dirs,
-      (int32_t*)sizes, n);
+      (const int32_t*)size, (const long long*)ids, (int32_t*)seg, o,
+      (unsigned long long*)(o + status_off), (long long*)(o + mid_off), n,
+      vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 """Hint-chain resolution for the planner: host arrays in, host arrays out.
 
 The two hint-cache snapshots are small and rebuilt every window, so they
-are copied to the device on every launch, with the window's chains.
+go to the device on every launch with the window's chains: all eight
+arrays packed into one buffer, one copy there, and (child, src) back in
+one copy.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ..phash.ops import to_i32
+from .._staging import upload_i32
 from ..pkval.ref import MAX_PROBE
 from . import kernel, ref
 
@@ -41,9 +43,15 @@ def hintchain_resolve(client_idx: Sequence[np.ndarray],
         d0 = nam.shape[1] if nam.ndim == 2 else 0
         return (np.full((0, d0), -2, np.int32),
                 np.full((0, d0), -1, np.int32))
-    tables = [to_i32(a, device) for a in (*client_idx, *fallback_idx)]
-    dep = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(depths, np.int32))).to(device)
-    child, src = hintchain(*tables, to_i32(nam, device), dep,
-                           root_id=root_id, max_probe=max_probe)
-    return child.cpu().numpy(), src.cpu().numpy()
+    *tables, nam_t, dep_t = upload_i32(
+        [*client_idx, *fallback_idx, nam, depths], torch.device(device))
+    if nam_t.is_cuda:
+        out = torch.empty((2, *nam.shape), dtype=torch.int32,
+                          device=nam_t.device)
+        kernel.hintchain(*tables, nam_t, dep_t, root_id=root_id,
+                         max_probe=max_probe, out=out)
+        res = out.cpu().numpy()
+        return res[0], res[1]
+    child, src = ref.hintchain_ref(*tables, nam_t, dep_t, root_id=root_id,
+                                   max_probe=max_probe)
+    return child.numpy(), src.numpy()

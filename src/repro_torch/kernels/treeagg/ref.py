@@ -34,3 +34,17 @@ def treeagg_ref(wave: torch.Tensor, par: torch.Tensor, isdir: torch.Tensor,
 
     return (seg, seg_sum(torch.ones_like(hit)), seg_sum(isdir[found]),
             seg_sum(size[found]))
+
+
+def treeagg_expand_ref(wave: torch.Tensor, ids: torch.Tensor,
+                       par: torch.Tensor, isdir: torch.Tensor,
+                       size: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    """The compact form's result, unpacked: (counts, dirs, sizes [W] int32,
+    the children's ids and the directories' among them (``is_dir == 1``),
+    int64 in slot order), from :func:`treeagg_ref`'s seg."""
+    seg, counts, dirs, sizes = treeagg_ref(wave, par, isdir, size)
+    hit = seg >= 0
+    child_ids = ids[hit]
+    return counts, dirs, sizes, child_ids, child_ids[isdir[hit] == 1]

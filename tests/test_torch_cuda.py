@@ -127,6 +127,138 @@ def test_treeagg_kernel_bit_equal(cuda, c, w):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _wave_case(case, rng):
+    """(wave, ids, par, isdir, size) on the host for the compact form: the
+    CPU tests' cases (``tests/test_torch_metadata.py``) and a member with
+    a million children."""
+    tile = ta_kernel.TILE_SLOTS
+    w_big = ta_kernel.WAVE_SMEM_CAP + 1
+    c, wave, par = {
+        "empty wave": (3 * tile + 17, [], None),
+        "all cleared": (2 * tile + 1, range(2, 40), -1),
+        "one member owns every slot": (3 * tile + 5, [7], 7),
+        "hits in every tile": (4 * tile + 333, np.sort(rng.choice(
+            np.arange(2, 4000), 300, replace=False)), None),
+        "sums that wrap": (2 * tile + 77, [3, 9], None),
+        "wave above the shared-memory cap": (3 * tile + 9, np.sort(
+            rng.choice(np.arange(2, 4 * w_big), w_big, replace=False)),
+            None),
+        "a member with 1M children": ((1 << 20) + 3, [5, 9, 100], 9),
+    }[case]
+    wave = np.asarray(wave, np.int64)
+    if par is None:
+        hi = int(wave.max()) * 2 + 10 if wave.size else 500
+        par = np.where(rng.random(c) < 0.6, rng.choice(wave, size=c),
+                       rng.integers(2, hi, size=c)) if wave.size \
+            else rng.integers(2, hi, size=c)
+        par[rng.random(c) < 0.1] = -1
+    else:
+        par = np.full(c, par, np.int64)
+        if case == "a member with 1M children":
+            par[::97] = -1
+    cleared = par < 0
+    isdir = np.where(cleared, 0, rng.random(c) < 0.3)
+    hi = 2**31 - 1 if case in ("sums that wrap",
+                               "a member with 1M children") else 5000
+    size = np.where(cleared, 0, rng.integers(0, hi, size=c))
+    ids = rng.permutation(np.arange(10**6, 10**6 + c)).astype(np.int64)
+    ids[cleared] = -1
+    return wave, ids, par, isdir, size
+
+
+@pytest.mark.parametrize("case", [
+    "empty wave", "all cleared", "one member owns every slot",
+    "hits in every tile", "sums that wrap",
+    "wave above the shared-memory cap", "a member with 1M children"])
+def test_treeagg_compact_bit_equal(cuda, case):
+    """The compact form (no seg; the children compacted on the card in
+    slot order) against its plain version, through the kernel and through
+    the wrapper the subtree protocol calls."""
+    from repro_torch.kernels.treeagg import ops as ta_ops
+    rng = np.random.default_rng(len(case))
+    wave, ids, par, isdir, size = _wave_case(case, rng)
+    args = (torch.from_numpy(wave.astype(np.int32)).to(cuda),
+            torch.from_numpy(ids).to(cuda),
+            *(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+              for a in (par, isdir, size)))
+    reset_launch_counts()
+    out = ta_kernel.treeagg_compact(*args)
+    got = ta_kernel.unpack(out, wave.size, par.size)
+    assert launch_counts()["treeagg"] == 1
+    want = [t.cpu() for t in ta_ref.treeagg_expand_ref(*args)]
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    for g, r in zip(ta_ops.treeagg_expand(wave, *args[1:]), want):
+        assert np.array_equal(g, r.numpy())
+    if case == "a member with 1M children":
+        assert int(got[0][1]) == got[3].numel() > 1_000_000
+
+
+def _hint_case(ccap, fcap, n_ops, rng, d=16):
+    """Client and fallback indexes of the given capacities (AMBIG values,
+    a tombstone) over a random tree, and chains down it."""
+    n_nodes = max(2, fcap // 4)
+    kids = {i: [] for i in range(n_nodes)}
+    client, fallback = t_col.HashIndex(ccap), t_col.HashIndex(fcap)
+    n_client = 0
+    for iid in range(2, n_nodes):
+        par, h = int(rng.integers(max(1, iid // 3), iid)), iid * 2654435761
+        h &= 0xFFFFFFFF
+        kids[par].append((h, iid))
+        r = rng.random()
+        if r < 0.05 and n_client < ccap // 4:
+            client.set(par, h, iid if r > 0.01 else t_col.AMBIG)
+            n_client += 1
+        else:
+            fallback.set(par, h, iid if r < 0.95 else t_col.AMBIG)
+    fallback.set(1, 12345, 77)
+    fallback.remove(1, 12345)
+    assert (client.cap, fallback.cap) == (ccap, fcap)
+    names = np.zeros((n_ops, d), np.int64)
+    depths = np.zeros(n_ops, np.int32)
+    for i in range(n_ops):
+        cur, k, want = 1, 0, int(rng.integers(0, d + 1))
+        while k < want and kids[cur]:
+            h, nxt = kids[cur][int(rng.integers(len(kids[cur])))]
+            names[i, k] = h if rng.random() > 0.03 else h ^ 1
+            cur, k = nxt, k + 1
+        depths[i] = k
+    return client, fallback, names, depths
+
+
+@pytest.mark.parametrize("ccap,fcap,n_ops,route", [
+    (64, 8192, 1024, "smem"),          # the main path's first window
+    (4096, 16384, 1024, "smem"),       # keys in shared memory, values not
+    (64, 8192, 3, "smem"),
+    (1, 2, 40, "smem"),                # tables too small for bulk copies
+    (65536, 65536, 4096, "global"),
+])
+def test_hintchain_routes_bit_equal(cuda, ccap, fcap, n_ops, route):
+    """Both routes against the plain version, through the kernel and the
+    wrapper the planner calls (one packed copy each way)."""
+    from repro_torch.kernels.hintchain import ops as hc_ops
+    rng = np.random.default_rng(ccap + n_ops)
+    client, fallback, names, depths = _hint_case(ccap, fcap, n_ops, rng)
+    assert hc_kernel.route_for(ccap, fcap) == route
+    tabs = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(cuda)
+            for a in (*client.arrays(), *fallback.arrays())]
+    nam = torch.from_numpy((names & 0xFFFFFFFF).astype(np.uint32)
+                           .view(np.int32)).to(cuda)
+    dep = torch.from_numpy(depths).to(cuda)
+    got = hc_kernel.hintchain(*tabs, nam, dep)
+    torch.cuda.synchronize()
+    assert hc_kernel.LAST_ROUTE == route
+    want = hc_ref.hintchain_ref(*tabs, nam, dep)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    child, src = hc_ops.hintchain_resolve(client.arrays(), fallback.arrays(),
+                                          names, depths, device=cuda)
+    assert hc_kernel.LAST_ROUTE == route
+    assert np.array_equal(child, want[0].cpu().numpy())
+    assert np.array_equal(src, want[1].cpu().numpy())
+    if n_ops > 1000:
+        assert (want[0] > 0).sum(1).max() >= 4 and (want[1] == 1).any()
+
+
 def test_du_on_card_matches_cpu(cuda):
     def run(device):
         store = t_col.ColumnarMetadataStore(n_datanodes=4, device=device)

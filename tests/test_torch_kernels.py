@@ -613,7 +613,7 @@ def test_route_exports_match_bindings():
                     node.func, "id", None) == "c_int":
                 read[node.args[0].value] = path.parent.name
     assert set(read) == {"gmm_last_route", "ssd_last_route",
-                         "wkv6_last_route"}
+                         "wkv6_last_route", "hintchain_last_route"}
     for name, pkg in read.items():
         defined = [t for t in texts
                    if re.search(rf"^int {name} = -?\d+;", t, re.M)]
