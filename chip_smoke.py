@@ -25,7 +25,8 @@ any failure raises and the script exits non-zero:
    wrap) against a wave of 4,096 directories in its seg form, and in its
    compact form (the children's ids compacted on the card) against waves
    of 4,096 and of 1.  Times are CUDA-event medians of 20 launches after
-   warm-up.
+   warm-up.  Then the launch floor (an empty kernel, back to back) and
+   one dependent device-memory load (a pointer chase over 512 MiB).
 3. The main path at deployment size: a columnar store on the card with 4
    datanodes and 4 namenodes, the Spotify-shaped namespace (127
    directories x 16 files) created through the op path plus a bulk
@@ -40,8 +41,11 @@ any failure raises and the script exits non-zero:
    1,024 stats served from the namenode's hint cache.  The launch counts
    are set to 0 just before and read just after: each of the five
    kernels must have run, every hintchain launch on route ``smem``.
-   The host time in the kernels' wrappers is reported per wrapper, with
-   treeagg's calls whose wave holds at least BIG_WAVE children apart.
+   The host time in the kernels' wrappers is reported per wrapper, wall
+   and the thread's CPU time (their difference: waits for the GIL or the
+   OS; CUDA's synchronisation spins, so waits for the card are CPU
+   time), with treeagg's calls whose wave holds at least BIG_WAVE
+   children apart.
    Each kernel's first main-path call is recorded and replayed against the
    plain version: those shapes give the JSON line's times and bounds.
 4. Checks: the same build, trace, du and batch on the host (plain
@@ -127,14 +131,19 @@ The line before the last is the kernels' JSON (nine kernels), the last
 line the device JSON.  Without a CUDA device, or outside the repository,
 it exits non-zero and prints no result.
 
-``--meta-times`` runs none of the phases either: it holds the two
-redesigned metadata kernels, treeagg (the form its main path launches)
-and hintchain, against their plain versions at their main-path shapes
-(META_CASES: the first wave of a subtree op over 1,002,162 slots, the
-wave that holds ``/bulk``'s million files, a planner window) and times
-the kernel and its wrapper (inputs to the card, launch, results back),
-one JSON line a case (``--profile`` adds the launch's CUDA kernels by
-``torch.profiler``); with ``--src`` as below.
+``--meta-times`` runs none of the phases either: it holds the four
+redesigned metadata kernels, treeagg (the form its main path launches),
+hintchain, pkval and phash_chain, against their plain versions at their
+main-path shapes (META_CASES: the first wave of a subtree op over
+1,002,162 slots, the wave that holds ``/bulk``'s million files, two
+planner windows, pkval's first call with the index's refresh, a
+phash_chain window) and times the kernel and its wrapper (inputs to the
+card, launch, results back; median and least, and the thread's CPU
+time), for pkval and phash_chain also the bare binding's steps and the
+two ways to copy, one JSON line a case after a line with the launch
+floor (``--profile`` adds the launch's CUDA kernels, the wrapper's
+copies and kernels by ``torch.profiler`` and its host time by
+``cProfile``); with ``--src`` as below.
 
 ``--scan-times`` runs none of the phases: it holds the two chunked scans,
 ``ssd`` and ``wkv6``, against their plain versions at the model paths'
@@ -166,6 +175,10 @@ ROOT = Path(__file__).resolve().parent
 BYTES_PER_S = 3.35e12
 OPS_PER_S = 132 * 64 * 1.98e9
 SOURCE = "src/repro_torch/kernels/csrc/metadata_kernels.cu"
+#: device-memory round trips that a launch of these kernels must wait for
+#: one after another, beside the launch floor: pkval's probe window
+#: (an index larger than L2); phash_chain's loads are independent
+LATENCY_CHAIN = {"pkval": 1, "phash_chain": 0}
 REPLACES = {
     "phash": "src/repro/kernels/phash/kernel.py:35",
     "phash_chain": "src/repro/kernels/phash/kernel.py:83",
@@ -440,7 +453,8 @@ def synthetic_slots(rng, c: int, w: int):
     return wave, par, isdir, size
 
 
-def phase_kernels(seed: int, dev) -> None:
+def phase_kernels(seed: int, dev):
+    """Phase 2; returns ``launch_floor``'s numbers."""
     from repro_torch.kernels.hintchain import kernel as hk, ref as hr
     from repro_torch.kernels.phash import kernel as pk, ref as pr
     from repro_torch.kernels.pkval import kernel as vk, ref as vr
@@ -522,6 +536,51 @@ def phase_kernels(seed: int, dev) -> None:
     live = int((tp >= 0).sum())
     log(f"phase2 pkval index: cap={tp.size} live={live} "
         f"tombstones={int((tp == -2).sum())} ambig={int((tv == -3).sum())}")
+    floor = launch_floor(dev)
+    log(f"phase2 launch floor: empty kernel ms={floor[0]:.6f} "
+        f"call_ms={floor[1]:.6f}; one device-memory round trip "
+        f"ms={floor[2]:.6f} (pointer chase, {CHASE_STEPS} steps over "
+        f"{4 * CHASE_SLOTS >> 20} MiB)" if floor else
+        "phase2 launch floor: not measured (no launch_floor in the "
+        "library)")
+    return floor
+
+
+#: the pointer chase of ``launch_floor``: a random cycle over 512 MiB (ten
+#: times L2), walked this many steps
+CHASE_SLOTS = 1 << 27
+CHASE_STEPS = 100_000
+
+
+def launch_floor(dev):
+    """(device ms, call ms) of an empty kernel launched through the same
+    ctypes path as the kernels, and the ms of one round trip to device
+    memory (a dependent pointer chase over a random cycle), from the two
+    measurements in the metadata kernels' source; None for a library
+    without them."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    if not hasattr(lib, "launch_floor"):
+        return None
+    lib.launch_floor.argtypes = [ctypes.c_void_p]
+    lib.memory_round_trips.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+
+    def run(fn, *args):
+        if fn(*args, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"{fn.__name__}: launch refused")
+
+    empty = lambda: run(lib.launch_floor)          # noqa: E731
+    perm = torch.randperm(CHASE_SLOTS, device=dev)
+    nxt = torch.empty(CHASE_SLOTS, dtype=torch.int32, device=dev)
+    nxt[perm] = perm.roll(-1).to(torch.int32)      # one cycle through all
+    del perm
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    chase = device_ms(lambda: run(lib.memory_round_trips, nxt.data_ptr(),
+                                  CHASE_STEPS, out.data_ptr()),
+                      reps=3, warmup=1)
+    return device_ms(empty), cuda_ms(empty), chase / CHASE_STEPS
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +592,9 @@ class Recorder:
     (treeagg's is its compact form's) and the route of every hintchain
     launch, and the host time spent in the request path's kernel wrappers
     (inputs to the card, launch, results back) and in the index mirror's
-    refresh."""
+    refresh: wall time and the calling thread's CPU time, whose difference
+    is the time that thread waited (for the GIL or for the card), and the
+    dirty slots each refresh of the hash index sends."""
 
     def __init__(self):
         from repro_torch.core.columnar import ColumnarTable, HashIndex
@@ -546,6 +607,7 @@ class Recorder:
         self.hint_routes = []
         self.hint_slots = []              # (client, fallback) a launch
         self.big_waves = (0, 0.0)
+        self.dirty = (0, 0, 0)            # refreshes, slots sent, most
         self._hk = hk
         self._orig = []
         for mod, name in ((pk, "phash"), (pk, "phash_chain"),
@@ -580,15 +642,20 @@ class Recorder:
 
     def _time(self, name, real):
         def timed(*args, **kw):
-            t0 = time.perf_counter()
+            if name == "device_arrays":       # slots the refresh will send
+                n, s, m = self.dirty
+                k = len(args[0]._dirty) if args[0]._mirror is not None else 0
+                self.dirty = (n + 1, s + k, max(m, k))
+            t0, c0 = time.perf_counter(), time.thread_time()
             res = None
             try:
                 res = real(*args, **kw)
                 return res
             finally:
                 dt = time.perf_counter() - t0
-                n, s = self.host_s.get(name, (0, 0.0))
-                self.host_s[name] = (n + 1, s + dt)
+                dc = time.thread_time() - c0
+                n, s, c = self.host_s.get(name, (0, 0.0, 0.0))
+                self.host_s[name] = (n + 1, s + dt, c + dc)
                 if name == "treeagg_expand" and res is not None \
                         and len(res[3]) >= BIG_WAVE:
                     n, s = self.big_waves
@@ -1599,9 +1666,11 @@ SCAN_CASES = (
 )
 
 
-def kernel_us(fn, calls: int = 5) -> list:
-    """[(kernel name, grid, mean device us a call)] of ``calls`` calls,
-    from the profiler's trace (written under build/, read back, removed)."""
+def kernel_us(fn, calls: int = 5, cats=("kernel",)) -> list:
+    """[(kernel name, grid, mean device us a call, launches a call)] of
+    ``calls`` calls, from the profiler's trace (written under build/, read
+    back, removed); ``cats`` adds other device events ("gpu_memcpy",
+    "gpu_memset")."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1618,10 +1687,12 @@ def kernel_us(fn, calls: int = 5) -> list:
     path.unlink()
     sums = {}
     for e in events:
-        if e.get("cat") == "kernel":
+        if e.get("cat") in cats:
             key = (e["name"][:80], str(e.get("args", {}).get("grid")))
-            sums[key] = sums.get(key, 0.0) + e["dur"] / calls
-    return [(n, g, round(us, 3)) for (n, g), us in sums.items()]
+            us, k = sums.get(key, (0.0, 0))
+            sums[key] = (us + e["dur"] / calls, k + 1)
+    return [(n, g, round(us, 3), k / calls)
+            for (n, g), (us, k) in sums.items()]
 
 
 def scan_times(tag: str, profile: bool, seed: int, dev) -> None:
@@ -1669,8 +1740,18 @@ def scan_times(tag: str, profile: bool, seed: int, dev) -> None:
 #: slots and over the largest snapshots of the replay, 4,096 + 16,384
 META_CASES = (("treeagg", "first wave W=1"), ("treeagg", "/bulk wave W=128"),
               ("hintchain", "first window 64+8192"),
-              ("hintchain", "late window 4096+16384"))
+              ("hintchain", "late window 4096+16384"),
+              ("pkval", "first call N=4704"),
+              ("phash_chain", "planner window N=1024 D=16"))
 META_SLOTS = 1_002_162
+#: the pkval case: the probes of phase 3's first pkval call (4,704), against
+#: a 2^23-slot index of ~1M keys whose mirror refreshes META_DIRTY slots
+#: before each call (phase 3's refreshes send 115 a call on average)
+META_PROBES = 4_704
+META_DIRTY = 128
+#: timed wrapper calls a case (the first 5 left out); host times on a
+#: shared host spread, so each row gives the median and the least
+META_CALLS = 100
 
 
 def meta_columns(rng):
@@ -1691,11 +1772,114 @@ def meta_columns(rng):
     return ids, par, isdir, size
 
 
+def meta_index(rng):
+    """The inode hash index of phase 3's store, built in bulk
+    (``synthetic_index``: 2^23 slots, ~1M keys, tombstones, AMBIG), and
+    the slots of keys that ``set`` finds where they are (so that a write
+    dirties one slot and never grows the index)."""
+    from repro_torch.core.columnar import HashIndex
+    (tp, tn, tv), _, _ = synthetic_index(rng, 1 << 23, 1_050_000)
+    idx = HashIndex()
+    idx.cap = tp.size
+    idx.par, idx.nam = tp.astype(np.int32), tn.astype(np.uint32)
+    idx.val = tv.astype(np.int32)
+    idx.used, idx.live = int((tp != -1).sum()), int((tp >= 0).sum())
+    live = rng.choice(np.flatnonzero(tp >= 0), 40 * META_DIRTY,
+                      replace=False)
+    found = [int(j) for j in live
+             if idx._find(int(tp[j]), int(tn[j]))[0] == j]
+    return idx, found
+
+
+def host_top(stages, before, calls: int = 50) -> list:
+    """The wrapper's host time by function, from ``cProfile`` over
+    ``calls`` calls (its own overhead included): [(function, us of its own
+    time a call, calls a call)] of the ten largest."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    for _ in range(calls):
+        if before:
+            before()
+        prof.enable()
+        for _, stage in stages:
+            stage()
+        prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats                 # type: ignore[attr-defined]
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    return [(f"{Path(f).name}:{line}({name})", round(tt / calls * 1e6, 1),
+             nc / calls) for (f, line, name), (_, nc, tt, _, _) in top]
+
+
+def copy_split(arrays, dev) -> dict:
+    """Host us of the two ways to move a wrapper's inputs to the card and
+    an output of the same size back, timed in turns in one process
+    (median of 200 calls each): one pageable copy an array
+    (``torch.from_numpy(a).to(dev)``) and a synchronising ``.cpu()``,
+    against one packed page-locked upload (``_staging.upload_i32``) and
+    one copy back into page-locked memory (``_staging.download_i32``);
+    empty for a tree without the latter."""
+    from repro_torch.kernels import _staging
+    if not hasattr(_staging, "download_i32"):
+        return {}
+    out = torch.zeros(sum(a.size for a in arrays), dtype=torch.int32,
+                      device=dev)
+    steps = {"pageable_uploads": lambda: [torch.from_numpy(a).to(dev)
+                                          for a in arrays],
+             "packed_upload": lambda: _staging.upload_i32(arrays, dev),
+             "pageable_copy_back": lambda: out.cpu().numpy(),
+             "pinned_copy_back": lambda: _staging.download_i32(out)}
+    times = {k: [] for k in steps}
+    for _ in range(200):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            times[name].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) * 1e6 for k, v in times.items()}
+
+
+def binding_split(kern, args, tensors, launcher, c_args) -> dict:
+    """Host us of the binding's steps, each timed alone (median of 200
+    calls): the input checks, the output's allocation, the current stream
+    (as a Stream object, and as the raw handle ``_build.launch`` takes),
+    the library's lookup, the ctypes call with its launch, and the whole
+    binding."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    fn = getattr(lib, launcher)
+    stream = torch.cuda.current_stream().cuda_stream
+    first = next(iter(tensors.values()))
+    steps = {"checks": lambda: _build.require_cuda_int32(**tensors),
+             "empty_like": lambda: torch.empty_like(first),
+             "current_stream": lambda: torch.cuda.current_stream()
+             .cuda_stream,
+             "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+                 torch.cuda.current_device()),
+             "library": _build.library,
+             "ctypes_launch": lambda: fn(*c_args, stream),
+             "binding": lambda: kern(*args)}
+    out = {}
+    for name, step in steps.items():
+        times = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            step()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out[name] = statistics.median(times) * 1e6
+    return out
+
+
 def meta_times(tag: str, profile: bool, seed: int, dev) -> None:
     """--meta-times: each of META_CASES through its wrapper on the card and
     on the host (equal), the kernel's device time and the wrapper's host
     time a call, then one JSON line."""
     from repro_torch.kernels.hintchain import kernel as hk, ops as ho
+    from repro_torch.kernels.phash import kernel as pk, ops as po
+    from repro_torch.kernels.pkval import kernel as vk, ops as vo
     from repro_torch.kernels.treeagg import kernel as tk, ops as to
     rng = np.random.default_rng(seed)
     ids, par, isdir, size = meta_columns(rng)
@@ -1703,6 +1887,11 @@ def meta_times(tag: str, profile: bool, seed: int, dev) -> None:
             *(torch.from_numpy(a.astype(np.int32)) for a in (par, isdir,
                                                               size)))
     card_cols = tuple(t.to(dev) for t in host)
+    floor = launch_floor(dev)
+    if floor:
+        print(json.dumps({"tag": tag, "kernel": "empty", "case": "launch "
+                          "floor", "ms": floor[0], "call_ms": floor[1],
+                          "round_trip_ms": floor[2]}), flush=True)
     for kernel, case in META_CASES:
         if kernel == "treeagg":
             wave = np.array([5]) if case.endswith("W=1") else np.unique(
@@ -1715,6 +1904,71 @@ def meta_times(tag: str, profile: bool, seed: int, dev) -> None:
             launch_ = (lambda: tk.treeagg_compact(w_card, *card_cols)) \
                 if hasattr(tk, "treeagg_compact") \
                 else (lambda: tk.treeagg(w_card, *card_cols[1:]))
+        elif kernel == "pkval":
+            idx, found = meta_index(rng)
+            n = META_PROBES
+            pick = rng.integers(0, len(found), size=n)
+            ppar = idx.par[np.array(found)[pick]].astype(np.int64)
+            pnam = idx.nam[np.array(found)[pick]].astype(np.int64)
+            miss = rng.random(n) < 0.1
+            ppar[miss] = rng.integers(1, 1 << 30, size=int(miss.sum()))
+            writes = iter(range(10**6))
+
+            def before():                 # the writes since the last call
+                for j in rng.choice(found, META_DIRTY, replace=False):
+                    idx.set(int(idx.par[j]), int(idx.nam[j]),
+                            2 + next(writes))
+
+            def plain():
+                host = (torch.from_numpy(idx.par),
+                        torch.from_numpy(idx.nam.view(np.int32)),
+                        torch.from_numpy(idx.val))
+                return (vo.pkval_lookup(*host, ppar, pnam),)
+
+            mirror = {}
+
+            def refresh():
+                mirror["t"] = idx.device_arrays(dev)
+
+            stages = (("device_arrays", refresh),
+                      ("pkval_lookup",
+                       lambda: (vo.pkval_lookup(*mirror["t"], ppar, pnam),)))
+            idx.device_arrays(dev)                   # the first, whole copy
+            tensors = dict(zip(("tp", "tn", "tv"), idx.device_arrays(dev)))
+            tensors.update(parents=i32(ppar, dev), name_hashes=i32(pnam, dev))
+            b_args = tuple(tensors.values())
+            out = torch.empty_like(tensors["parents"])
+            c_args = (*(t.data_ptr() for t in b_args[:3]), idx.cap,
+                      b_args[3].data_ptr(), b_args[4].data_ptr(),
+                      out.data_ptr(), n, 8)
+            launch_ = (lambda: vk.pkval(*b_args))
+            split = (vk.pkval, b_args, tensors, "pkval_launch", c_args)
+            moved = b_args[3:]
+        elif kernel == "phash_chain":
+            n, d = 1024, 16
+            cpar = rng.integers(0, 1 << 32, size=(n, d))
+            cnam = rng.integers(0, 1 << 32, size=(n, d))
+            hints = rng.integers(0, 1 << 32, size=n)
+            depths = rng.integers(1, d + 1, size=n)
+            past = np.arange(d) >= depths[:, None]
+            cpar[past], cnam[past] = 0, 0
+            before = None
+            stages = (("wrapper", lambda: po.phash_chains(
+                cpar, cnam, hints, depths, 64, device=dev)),)
+            plain = lambda: po.phash_chains(                # noqa: E731
+                cpar, cnam, hints, depths, 64, device="cpu")
+            tensors = dict(zip(("parents", "names", "hints", "depths"),
+                               (i32(a, dev) for a in (cpar, cnam, hints,
+                                                      depths))))
+            b_args = (*tensors.values(), 64)
+            out = torch.empty(n * d + 2 * n, dtype=torch.int32, device=dev)
+            o = out.data_ptr()
+            c_args = (*(t.data_ptr() for t in b_args[:4]), o,
+                      o + 4 * n * d, o + 4 * (n * d + n), n, d, 64)
+            launch_ = (lambda: pk.phash_chain(*b_args))
+            split = (pk.phash_chain, b_args, tensors, "phash_chain_launch",
+                     c_args)
+            moved = b_args[:4]
         else:
             late = "4096" in case
             client, fallback, names, depths = synthetic_hint_tables(
@@ -1730,23 +1984,61 @@ def meta_times(tag: str, profile: bool, seed: int, dev) -> None:
                                                 *fallback.arrays(), names,
                                                 depths))
             launch_ = (lambda: hk.hintchain(*args))
-        fn, a, kw = wrap
-        got = fn(*a, **kw)
-        if len(got) != len(plain) or not all(
-                np.array_equal(x, y) for x, y in zip(got, plain)):
+        if kernel not in ("pkval", "phash_chain"):
+            fn, a, kw = wrap
+            stages = (("wrapper", lambda: fn(*a, **kw)),)
+            before = split = None
+        if before:
+            before()
+        for _, stage in stages:
+            got = stage()
+        want = plain() if callable(plain) else plain
+        if len(got) != len(want) or not all(
+                np.array_equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"--meta-times {case}: card != host")
         ms = device_ms(launch_)
-        calls = []
-        for _ in range(25):
-            t0 = time.perf_counter()
-            fn(*a, **kw)
-            calls.append(time.perf_counter() - t0)
+        walls = {k: [] for k, _ in stages}
+        cpus = {k: [] for k, _ in stages}
+        for _ in range(META_CALLS):
+            if before:
+                before()
+            for k, stage in stages:
+                t0, c0 = time.perf_counter(), time.thread_time()
+                stage()
+                walls[k].append(time.perf_counter() - t0)
+                cpus[k].append(time.thread_time() - c0)
+        totals = [sum(c) for c in zip(*walls.values())][5:]
         row = {"tag": tag, "kernel": kernel, "case": case, "ms": ms,
-               "wrapper_ms": statistics.median(calls[5:]) * 1e3,
+               "wrapper_ms": statistics.median(totals) * 1e3,
+               "wrapper_min_ms": min(totals) * 1e3,
                "route": getattr(hk, "LAST_ROUTE", None)
                if kernel == "hintchain" else None}
+        if len(stages) > 1:
+            row["stages_ms"] = {k: statistics.median(v[5:]) * 1e3
+                                for k, v in walls.items()}
+        # the thread's CPU clock may tick coarsely (10 ms on a shared
+        # host): the mean over the calls, not the median, estimates it
+        row["wrapper_cpu_ms"] = statistics.fmean(
+            [sum(c) for c in zip(*cpus.values())][5:]) * 1e3
+        if split:
+            kern, b_args, tensors, launcher, c_args = split
+            row["call_ms"] = cuda_ms(lambda: kern(*b_args))
+            row["binding_us"] = binding_split(*split)
+            row["copies_us"] = copy_split(
+                [t.cpu().numpy() for t in moved], dev)
+        if kernel == "pkval":
+            host_idx = (idx.par, idx.nam.view(np.int32), idx.val)
+            if not all(torch.equal(m.cpu(), torch.from_numpy(h)) for m, h
+                       in zip(idx.device_arrays(dev), host_idx)):
+                raise AssertionError("--meta-times: index mirror != host")
+            row["dirty_slots_a_call"] = META_DIRTY
         if profile:
+            row["host_top_us"] = host_top(stages, before)
             row["kernels_us"] = kernel_us(launch_)
+            row["wrapper_device_us"] = {k: kernel_us(
+                lambda st=stage: (before and before(), st()), calls=1,
+                cats=("kernel", "gpu_memcpy", "gpu_memset"))
+                for k, stage in stages}
         print(json.dumps(row), flush=True)
 
 
@@ -1808,7 +2100,7 @@ def main() -> int:
             f"the library's SASS")
 
     # -- phase 2 -----------------------------------------------------------
-    phase_kernels(args.seed, dev)
+    floor = phase_kernels(args.seed, dev)
 
     # -- phase 3 -----------------------------------------------------------
     rec = Recorder()
@@ -1830,13 +2122,18 @@ def main() -> int:
         f"round_trips={col['du'].cost.round_trips} du_s={col['t_du']:.3f}")
     log(f"phase3 counts: {json.dumps(counts)}")
     wall = col["t_trace"] + col["t_du"] + col["t_batch"]
-    in_kernels = sum(t for _, t in rec.host_s.values())
+    in_kernels = sum(t for _, t, _ in rec.host_s.values())
     log("phase3 host time in kernel wrappers: " + ", ".join(
-        f"{k} {n} calls {t:.4f} s" for k, (n, t) in rec.host_s.items())
+        f"{k} {n} calls {t:.4f} s" for k, (n, t, _) in rec.host_s.items())
         + f"; {in_kernels:.4f} s of {wall:.3f} s trace+du+batch wall "
         f"({100 * in_kernels / wall:.2f}%); treeagg_expand calls with "
         f">= {BIG_WAVE} children: {rec.big_waves[0]} calls "
         f"{rec.big_waves[1]:.4f} s")
+    log("phase3 wrapper wall vs thread CPU: " + ", ".join(
+        f"{k} wall={t:.4f} cpu={c:.4f} waited={t - c:.4f} s"
+        for k, (n, t, c) in rec.host_s.items())
+        + f"; hash index refreshes {rec.dirty[0]}, dirty slots sent "
+        f"{rec.dirty[1]} (most {rec.dirty[2]})")
     log(f"phase3 launches: {json.dumps(launches)} peak_device_bytes="
         f"{torch.cuda.max_memory_allocated()}")
     missing = [k for k in REPLACES if launches[k] < 1]
@@ -1879,6 +2176,10 @@ def main() -> int:
         b_ms, b_by, n_bytes, n_ops = work(*a, **kw)
         shapes = [tuple(t.shape) for t in a if torch.is_tensor(t)]
         extra = f" route={hk.LAST_ROUTE}" if name == "hintchain" else ""
+        if floor and name in LATENCY_CHAIN:
+            trips = LATENCY_CHAIN[name]
+            extra += (f" latency_bound_ms={floor[0] + trips * floor[2]:.6f}"
+                      f" (launch floor + {trips} round trip)")
         log(f"phase3 {name}: first main-path call shapes={shapes} "
             f"bit-equal ms={ms:.6f} call_ms={call_ms:.6f} "
             f"plain_ms={plain_ms:.6f} bound_ms={b_ms:.6f} "

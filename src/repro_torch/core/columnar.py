@@ -50,6 +50,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from ..kernels._staging import upload_i32
 from .store import MetadataStore
 from .tables import ROOT_ID, TableSchema, pk_of
 from .ops_registry import REGISTRY
@@ -118,7 +119,8 @@ class HashIndex:
         self.val = np.full(cap, EMPTY, np.int32)
         self.used = 0            # live + tombstones (probe-chain occupancy)
         self.live = 0
-        self._mirror: Optional[Tuple[torch.Tensor, ...]] = None
+        self._mirror: Optional[torch.Tensor] = None     # [3, cap]
+        self._rows: Tuple[torch.Tensor, ...] = ()       # its three rows
         self._mirror_device: Optional[torch.device] = None
         self._dirty: List[int] = []   # slots written since the last refresh
         self._mu = threading.RLock()
@@ -231,22 +233,29 @@ class HashIndex:
         """The (parent, name_hash, value) triple as int32 tensors on
         ``device`` (name hashes as bit patterns), equal to the host arrays:
         the first call and the first after a growth copy the whole index,
-        later ones only the slots written in between (``index_copy_``)."""
+        later ones only the slots written in between: the slots (int64, as
+        pairs of int32 words) and their three values in one packed upload,
+        then one ``index_copy_`` into the mirror, one [3, C] tensor whose
+        rows are the triple."""
         device = torch.device(device)
         with self._mu:
             host = (self.par, self.nam.view(np.int32), self.val)
             if self._mirror is None or self._mirror_device != device:
                 self._dirty = []
                 self._mirror_device = device
-                self._mirror = tuple(
-                    torch.from_numpy(a).to(device, copy=True) for a in host)
+                self._mirror = torch.empty((3, self.cap), dtype=torch.int32,
+                                           device=device)
+                self._rows = tuple(self._mirror)
+                for row, a in zip(self._rows, host):
+                    row.copy_(torch.from_numpy(a))
             elif self._dirty:
                 idx = np.unique(np.asarray(self._dirty, np.int64))
                 self._dirty = []
-                at = torch.from_numpy(idx).to(device)
-                for m, a in zip(self._mirror, host):
-                    m.index_copy_(0, at, torch.from_numpy(a[idx]).to(device))
-            return self._mirror  # type: ignore[return-value]
+                at, vals = upload_i32(
+                    [idx.view(np.int32), np.stack([a[idx] for a in host])],
+                    device)
+                self._mirror.index_copy_(1, at.view(torch.int64), vals)
+            return self._rows
 
     @classmethod
     def from_entries(cls, entries: Iterable[Tuple[int, str, int]]

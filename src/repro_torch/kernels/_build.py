@@ -96,6 +96,9 @@ def _digest(csrc: Path = CSRC) -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source has none."""
     global _lib
+    lib = _lib
+    if lib is not None:           # loaded: no lock on the launch path
+        return lib
     with _mu:
         if _lib is not None:
             return _lib
@@ -186,9 +189,12 @@ def require_cuda_float(**tensors: object) -> None:
 
 
 def launch(name: str, *args: object) -> None:
-    """Call one launcher on the current stream; raise on a refused launch."""
+    """Call one launcher on the current stream; raise on a refused launch.
+    The stream's handle comes from PyTorch's raw accessor, as PyTorch's own
+    compiled kernels take it: ``torch.cuda.current_stream()`` would build
+    a Stream object on every launch, several µs a call."""
     import torch
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

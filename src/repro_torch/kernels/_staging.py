@@ -1,12 +1,17 @@
-"""Host-to-card uploads of the metadata wrappers in one copy.
+"""Host-to-card uploads and card-to-host copies of the metadata wrappers,
+one copy each way.
 
 A wrapper that sends several small host arrays to the card packs their low
 32 bits into one int32 host buffer and moves that buffer in one copy: from
-page-locked memory for a card, so the copy is one asynchronous transfer
-rather than one staged copy an array.  The page-locked buffers are kept in
-a pool that every thread shares; a buffer goes back to the pool with an
-event recorded after its copy, and is written again only once that event
-has completed.
+page-locked memory for a card, so the copy is one DMA transfer rather than
+one staged copy an array.  Its results come back the same way, in one copy
+of one int32 buffer into page-locked memory, and are copied out of it.
+Each thread has one page-locked buffer (made once, grown when too small)
+for both, and both copies are synchronous: the buffer is free again when
+the copy returns, so no pool, lock or event guards it.  On a small call
+the host's work is the cost (each PyTorch call from Python costs
+microseconds, more than these copies take on the card), so both helpers
+make as few PyTorch calls as they can.
 """
 from __future__ import annotations
 
@@ -16,26 +21,17 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-#: page-locked buffers not in use, each with the event of its last copy
-_free: List[Tuple[torch.Tensor, "torch.cuda.Event"]] = []
-_mu = threading.Lock()
+#: each thread's page-locked int32 buffer and its numpy view
+_local = threading.local()
 
 
-def _take(n: int) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
-    """A page-locked int32 buffer of at least ``n`` whose last copy has
-    been read, and its event."""
-    with _mu:
-        for i, (buf, ev) in enumerate(_free):
-            if buf.numel() >= n:
-                del _free[i]
-                break
-        else:
-            buf = None
-    if buf is None:
-        return (torch.empty(max(n, 1 << 16), dtype=torch.int32,
-                            pin_memory=True), torch.cuda.Event())
-    ev.synchronize()
-    return buf, ev
+def _pinned(n: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """The calling thread's page-locked buffer of at least ``n`` ints."""
+    buf = getattr(_local, "buf", None)
+    if buf is None or buf[0].numel() < n:
+        t = torch.empty(max(n, 1 << 16), dtype=torch.int32, pin_memory=True)
+        buf = _local.buf = (t, t.numpy())
+    return buf
 
 
 def low32(a) -> np.ndarray:
@@ -64,18 +60,30 @@ def upload_i32(arrays: Sequence, device: torch.device) -> List[torch.Tensor]:
     offs = offsets([a.size for a in arrs])
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        buf, ev = _take(offs[-1])
-        host = buf[:offs[-1]]
+        buf, h = _pinned(offs[-1])
     else:
-        host = torch.empty(offs[-1], dtype=torch.int32)
-    h = host.numpy()
+        buf = torch.empty(offs[-1], dtype=torch.int32)
+        h = buf.numpy()
     for a, o in zip(arrs, offs):
         h[o:o + a.size] = a.reshape(-1)
-    if on_card:
-        dev = host.to(device, non_blocking=True)
-        ev.record()
-        with _mu:
-            _free.append((buf, ev))
-    else:
-        dev = host
-    return [dev[o:o + a.size].view(a.shape) for a, o in zip(arrs, offs)]
+    # synchronous: the thread's buffer may be written again on return
+    dev = buf[:offs[-1]].to(device) if on_card else buf
+    # every array and the padding after it, cut in one call
+    sizes = [k for a, o, e in zip(arrs, offs, offs[1:])
+             for k in (a.size, e - o - a.size)]
+    parts = dev.split_with_sizes(sizes)[::2]
+    return [p if a.ndim == 1 else p.view(a.shape)
+            for p, a in zip(parts, arrs)]
+
+
+def download_i32(t: torch.Tensor) -> np.ndarray:
+    """An int32 tensor's values as a host array of its own (of its shape):
+    from a card in one synchronous copy into the calling thread's
+    page-locked buffer, then copied out of it; a CPU tensor's as they
+    are."""
+    if not t.is_cuda:
+        return t.numpy()
+    n = t.numel()
+    buf, h = _pinned(n)
+    buf[:n].copy_(t.reshape(-1))        # returns once the copy has landed
+    return h[:n].reshape(t.shape).copy()

@@ -11,11 +11,10 @@
 // and compute the same functions bit for bit.  Every value is a 32-bit
 // integer (inode ids, which treeagg hands back, are int64); uint32 keys and
 // name hashes travel as int32 bit patterns and are reinterpreted here.
-// phash, phash_chain and pkval are bound by device-memory traffic (a few
-// integer operations per byte): each is one thread per output row with a
-// grid-stride loop, its hash-table probes through the non-coherent cache
-// (__ldg).  hintchain and treeagg were redesigned for Hopper; their own
-// notes below say what bounds each and what the design does about it.
+// phash is bound by device-memory traffic (a few integer operations per
+// byte): one thread per key with a grid-stride loop.  phash_chain, pkval,
+// hintchain and treeagg were redesigned for Hopper; their own notes below
+// say what bounds each and what the design does about it.
 // Nothing is padded: the kernels take any n.
 //
 // Plain C interface (loaded with ctypes): each launcher takes device
@@ -42,28 +41,6 @@ __device__ __forceinline__ uint32_t mix32(uint32_t k) {
   return h ^ (h >> 16);
 }
 
-// Linear-probe lookup of (par, nam) in one open-addressing table: at most
-// max_probe slots from home; an EMPTY parent ends the chain, a tombstone
-// (-2) is stepped over, AMBIG (-3) values are returned as they are.  A probe
-// parent < 0 is padding and always misses.
-__device__ __forceinline__ int32_t probe_table(
-    const int32_t* __restrict__ tp, const int32_t* __restrict__ tn,
-    const int32_t* __restrict__ tv, uint32_t mask, int32_t par, uint32_t nam,
-    int max_probe) {
-  if (par < 0) return kEmpty;
-  uint32_t h = ((uint32_t)par * kGolden) ^ (nam * kGolden2);
-  h ^= h >> 16;
-  const uint32_t home = h & mask;
-  for (int step = 0; step < max_probe; ++step) {
-    const uint32_t j = (home + (uint32_t)step) & mask;
-    const int32_t ep = __ldg(tp + j);
-    if (ep >= 0 && ep == par && (uint32_t)__ldg(tn + j) == nam)
-      return __ldg(tv + j);
-    if (ep == kEmpty) return kEmpty;
-  }
-  return kEmpty;
-}
-
 __global__ void phash_kernel(const int32_t* __restrict__ keys,
                              int32_t* __restrict__ out, long long n,
                              uint32_t n_partitions) {
@@ -72,45 +49,173 @@ __global__ void phash_kernel(const int32_t* __restrict__ keys,
     out[i] = (int32_t)(mix32((uint32_t)keys[i]) % n_partitions);
 }
 
-// One thread per path row: partition of every component's parent id, the
-// partition of the row's hint id, and the chain signature folded over the
-// first depths[r] components.
-__global__ void phash_chain_kernel(
+// --- phash_chain -------------------------------------------------------------
+//
+// Per path row: the partition of every component's parent id, the partition
+// of the row's hint id, and the chain signature folded over the first
+// depths[r] components.  A thread per row would read and write its D
+// components with a stride of D ints between neighbouring lanes (32
+// sectors a warp access), and a planner window of a thousand rows would
+// fill 4 blocks.  So a block takes a tile of `rows` rows, which is one
+// contiguous span of rows x D ints: every thread reads parents and names
+// of one element (16-byte vector loads where D % 4 == 0 and the pointers
+// are 16-byte aligned), writes its comp coalesced, and leaves
+// mix(parent) ^ name, the fold's operand, in shared memory (row stride D
+// rounded up to odd, so the fold's reads hit distinct banks).  Then one
+// thread a row folds the signature, which is sequential by definition:
+// it reads its row's operands from shared memory 8 at a time into
+// registers, so the reads overlap and only the multiply chain is serial
+// (a fold straight from shared memory, one read a step, took 0.35 µs
+// more at D = 16).  It writes the hint partition and the signature.
+// Blocks of 64 threads and 16 rows put N = 1,024 on 64 SMs.
+
+constexpr int kPcThreads = 64;
+constexpr int kPcRows = 16;                       // rows a block, at most
+constexpr int kPcSmemCap = 48 * 1024;             // fold operands a block
+
+__device__ __forceinline__ void chain_elem(uint32_t p, uint32_t m, int e,
+                                           int depth, int stride,
+                                           uint32_t n_partitions,
+                                           uint32_t* xs, int32_t* comp_e) {
+  const uint32_t h = mix32(p);
+  *comp_e = (int32_t)(h % n_partitions);
+  const int r = e / depth;
+  xs[r * stride + (e - r * depth)] = h ^ m;
+}
+
+__global__ void __launch_bounds__(kPcThreads) phash_chain_kernel(
     const int32_t* __restrict__ parents, const int32_t* __restrict__ names,
     const int32_t* __restrict__ hints, const int32_t* __restrict__ depths,
     int32_t* __restrict__ comp, int32_t* __restrict__ hint_parts,
     int32_t* __restrict__ sigs, long long n, int depth,
-    uint32_t n_partitions) {
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < n;
-       r += (long long)gridDim.x * blockDim.x) {
-    const int32_t dep = depths[r];
-    const long long base = r * depth;
-    uint32_t sig = 0;
-    for (int d = 0; d < depth; ++d) {
-      const uint32_t h = mix32((uint32_t)parents[base + d]);
-      comp[base + d] = (int32_t)(h % n_partitions);
-      if (d < dep) {
-        uint32_t s = (sig ^ h ^ (uint32_t)names[base + d]) * kGolden2;
-        sig = s ^ (s >> 15);
+    uint32_t n_partitions, int rows, int vec) {
+  extern __shared__ uint32_t xs[];
+  const int stride = depth | 1;
+  for (long long r0 = (long long)blockIdx.x * rows; r0 < n;
+       r0 += (long long)gridDim.x * rows) {
+    const int nr = (int)(n - r0 < rows ? n - r0 : rows);
+    const long long base = r0 * depth;
+    const int span = nr * depth;
+    if (vec) {
+      const int4* p4 = reinterpret_cast<const int4*>(parents + base);
+      const int4* m4 = reinterpret_cast<const int4*>(names + base);
+      int4* c4 = reinterpret_cast<int4*>(comp + base);
+      for (int q = threadIdx.x; q < span / 4; q += kPcThreads) {
+        const int4 p = __ldg(p4 + q), m = __ldg(m4 + q);
+        int4 c;
+        chain_elem(p.x, m.x, 4 * q, depth, stride, n_partitions, xs, &c.x);
+        chain_elem(p.y, m.y, 4 * q + 1, depth, stride, n_partitions, xs,
+                   &c.y);
+        chain_elem(p.z, m.z, 4 * q + 2, depth, stride, n_partitions, xs,
+                   &c.z);
+        chain_elem(p.w, m.w, 4 * q + 3, depth, stride, n_partitions, xs,
+                   &c.w);
+        c4[q] = c;
       }
+    } else {
+      for (int e = threadIdx.x; e < span; e += kPcThreads)
+        chain_elem((uint32_t)__ldg(parents + base + e),
+                   (uint32_t)__ldg(names + base + e), e, depth, stride,
+                   n_partitions, xs, comp + base + e);
     }
-    hint_parts[r] = (int32_t)(mix32((uint32_t)hints[r]) % n_partitions);
-    sigs[r] = (int32_t)sig;
+    __syncthreads();
+    for (int t = threadIdx.x; t < nr; t += kPcThreads) {
+      const long long r = r0 + t;
+      const int dep = min(__ldg(depths + r), depth);
+      const uint32_t* x = xs + t * stride;
+      uint32_t sig = 0;
+      for (int d0 = 0; d0 < dep; d0 += 8) {      // 8 loads in flight
+        uint32_t v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = d0 + k < dep ? x[d0 + k] : 0u;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (d0 + k < dep) {
+            const uint32_t s = (sig ^ v[k]) * kGolden2;
+            sig = s ^ (s >> 15);
+          }
+      }
+      hint_parts[r] = (int32_t)(mix32((uint32_t)__ldg(hints + r)) %
+                                n_partitions);
+      sigs[r] = (int32_t)sig;
+    }
+    __syncthreads();
   }
 }
 
-// One thread per probe against the store's inode hash index.
-__global__ void pkval_kernel(const int32_t* __restrict__ tp,
-                             const int32_t* __restrict__ tn,
-                             const int32_t* __restrict__ tv, uint32_t mask,
-                             const int32_t* __restrict__ parents,
-                             const int32_t* __restrict__ names,
-                             int32_t* __restrict__ out, long long n,
-                             int max_probe) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    out[i] = probe_table(tp, tn, tv, mask, parents[i], (uint32_t)names[i],
-                         max_probe);
+// --- pkval -------------------------------------------------------------------
+//
+// Linear-probe lookup of every (parent, name hash) probe in the inode
+// index: at most max_probe slots from home; an EMPTY parent ends the chain,
+// a tombstone (-2) is stepped over, AMBIG (-3) values are returned as they
+// are, and a probe parent < 0 is padding and always misses.
+//
+// The inode index (2^23 slots, 3 x 32 MiB) does not fit in L2, so each
+// slot read is a round trip to device memory, and a thread walking its
+// probe's chain slot after slot (tn only after tp matched, tv only after
+// that) would wait for up to 2-3 of them a step.  Here a group of
+// kPkLanes = 8 lanes takes one probe: lane s reads tp, tn and tv of slot
+// home + s, three independent loads, so a window of 8 slots costs one round
+// trip.  Two ballots over the warp give each group its lanes that hold the
+// key (a hit) and that hold EMPTY; the answer is the lowest lane set in
+// either: its value for a hit, -1 for EMPTY, and -1 when no lane is set
+// after max_probe slots (windows of 8 in turn for a larger max_probe).
+// That is the step loop, bit for bit: the mask wraps the window past the
+// table's last slot.
+// Blocks of 128 threads take 16 probes each, so the main path's ~2,500
+// probes spread over all 132 SMs.
+
+constexpr int kPkLanes = 8;
+constexpr int kPkThreads = 128;
+
+__global__ void __launch_bounds__(kPkThreads) pkval_kernel(
+    const int32_t* __restrict__ tp, const int32_t* __restrict__ tn,
+    const int32_t* __restrict__ tv, uint32_t mask,
+    const int32_t* __restrict__ parents, const int32_t* __restrict__ names,
+    int32_t* __restrict__ out, long long n, int max_probe) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kGroups = 32 / kPkLanes;           // probes a warp
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (kPkLanes - 1);
+  const int lead = lane - sub;                     // the group's lane 0
+  const long long warp =
+      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long g0 = warp * kGroups; g0 < n; g0 += warps * kGroups) {
+    const long long i = g0 + lane / kPkLanes;
+    const bool valid = i < n;
+    const int32_t par = valid ? __ldg(parents + i) : -1;
+    const uint32_t nam = valid ? (uint32_t)__ldg(names + i) : 0u;
+    uint32_t h = ((uint32_t)par * kGolden) ^ (nam * kGolden2);
+    h ^= h >> 16;
+    const uint32_t home = h & mask;
+    bool done = par < 0;                           // padding misses
+    int32_t res = kEmpty;
+    for (int w0 = 0; w0 < max_probe; w0 += kPkLanes) {
+      if (__all_sync(kAll, done)) break;
+      const int step = w0 + sub;
+      bool hit = false, empty = false;
+      int32_t ev = kEmpty;
+      if (!done && step < max_probe) {
+        const uint32_t j = (home + (uint32_t)step) & mask;
+        const int32_t ep = __ldg(tp + j);
+        const uint32_t en = (uint32_t)__ldg(tn + j);
+        ev = __ldg(tv + j);
+        hit = ep >= 0 && ep == par && en == nam;
+        empty = ep == kEmpty;
+      }
+      const unsigned hits = (__ballot_sync(kAll, hit) >> lead) & 0xFFu;
+      const unsigned ends =
+          (__ballot_sync(kAll, hit || empty) >> lead) & 0xFFu;
+      const int first = __ffs(ends) - 1;           // -1: none in the window
+      const int32_t v = __shfl_sync(kAll, ev, lead + (first < 0 ? 0 : first));
+      if (!done && ends) {
+        res = (hits >> first) & 1u ? v : kEmpty;
+        done = true;
+      }
+    }
+    if (valid && sub == 0) out[i] = res;
+  }
 }
 
 // --- hintchain ---------------------------------------------------------------
@@ -662,6 +767,17 @@ __global__ void __launch_bounds__(kTaThreads) treeagg_kernel(
   }
 }
 
+__global__ void noop_kernel() {}
+
+// One thread follows `steps` dependent loads through `next`, a random cycle
+// over a buffer larger than L2: steps round trips to device memory.
+__global__ void chase_kernel(const int32_t* next, long long steps,
+                             int32_t* out) {
+  int32_t j = 0;
+  for (long long s = 0; s < steps; ++s) j = next[j];
+  *out = j;
+}
+
 inline unsigned grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
@@ -690,6 +806,21 @@ cudaError_t resident_blocks(Kern kern, int threads, int smem,
 
 extern "C" {
 
+// Two measurements beside the kernels' times, not kernels of any path (so
+// not named *_launch): an empty kernel, what any launch costs on the card,
+// and a pointer chase, what one round trip to device memory costs.
+int launch_floor(void* stream) {
+  noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+int memory_round_trips(const void* next, long long steps, void* out,
+                       void* stream) {
+  chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int32_t*)next,
+                                                  steps, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
 int phash_launch(const void* keys, void* out, long long n,
                  unsigned n_partitions, void* stream) {
   if (n <= 0) return 0;
@@ -698,15 +829,27 @@ int phash_launch(const void* keys, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
+// comp [n, depth], hint_parts [n] and sigs [n] (the binding passes three
+// parts of one packed buffer).  depth must leave room for one row's fold
+// operands in kPcSmemCap (the binding's MAX_DEPTH).
 int phash_chain_launch(const void* parents, const void* names,
                        const void* hints, const void* depths, void* comp,
                        void* hint_parts, void* sigs, long long n, int depth,
                        unsigned n_partitions, void* stream) {
   if (n <= 0) return 0;
-  phash_chain_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  const int stride = depth | 1;
+  const int rows = std::min(kPcRows, kPcSmemCap / (4 * stride));
+  if (depth < 0 || rows < 1) return (int)cudaErrorInvalidValue;
+  const int vec = depth % 4 == 0 &&
+                  ((uintptr_t)parents | (uintptr_t)names |
+                   (uintptr_t)comp) % 16 == 0;
+  const long long blocks =
+      std::min((n + rows - 1) / rows, kMaxBlocks);
+  phash_chain_kernel<<<(unsigned)blocks, kPcThreads, 4 * rows * stride,
+                       (cudaStream_t)stream>>>(
       (const int32_t*)parents, (const int32_t*)names, (const int32_t*)hints,
       (const int32_t*)depths, (int32_t*)comp, (int32_t*)hint_parts,
-      (int32_t*)sigs, n, depth, n_partitions);
+      (int32_t*)sigs, n, depth, n_partitions, rows, vec);
   return (int)cudaGetLastError();
 }
 
@@ -714,7 +857,10 @@ int pkval_launch(const void* tp, const void* tn, const void* tv,
                  long long cap, const void* parents, const void* names,
                  void* out, long long n, int max_probe, void* stream) {
   if (n <= 0) return 0;
-  pkval_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  constexpr long long kProbesABlock = kPkThreads / kPkLanes;
+  const long long blocks =
+      std::min((n + kProbesABlock - 1) / kProbesABlock, kMaxBlocks);
+  pkval_kernel<<<(unsigned)blocks, kPkThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)tp, (const int32_t*)tn, (const int32_t*)tv,
       (uint32_t)(cap - 1), (const int32_t*)parents, (const int32_t*)names,
       (int32_t*)out, n, max_probe);

@@ -3,7 +3,8 @@
 Each function moves its inputs to ``device`` as int32 tensors (uint32 keys
 as their bit patterns) and runs the CUDA kernel there, or the plain
 PyTorch version when ``device`` is the CPU.  No padding: the kernels take
-any N.
+any N.  ``phash_chains`` sends its four arrays in one packed upload and
+brings its three results back in one copy of the kernel's packed output.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .._staging import download_i32, upload_i32
 from . import kernel, ref
 
 
@@ -57,10 +59,15 @@ def phash_chains(parent_ids, name_hashes, hint_ids, depths,
         d0 = par.shape[1] if par.ndim == 2 else 0
         return (np.zeros((0, d0), np.int32), np.zeros(0, np.int32),
                 np.zeros(0, np.uint32))
-    dep = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(depths, np.int32))).to(device)
-    comp, hint_parts, sigs = phash_chain(
-        to_i32(par, device), to_i32(name_hashes, device),
-        to_i32(hint_ids, device), dep, n_partitions)
-    return (comp.cpu().numpy(), hint_parts.cpu().numpy(),
-            sigs.cpu().numpy().view(np.uint32))
+    d = par.shape[1]
+    args = upload_i32([par, name_hashes, hint_ids, depths],
+                      torch.device(device))
+    if args[0].is_cuda:
+        out = torch.empty(kernel.layout(n, d)[2], dtype=torch.int32,
+                          device=args[0].device)
+        kernel.phash_chain(*args, n_partitions, out=out)
+    else:
+        out = torch.cat([t.reshape(-1) for t in
+                         ref.phash_chain_ref(*args, n_partitions)])
+    comp, hint_parts, sigs = kernel.unpack(download_i32(out), n, d)
+    return comp, hint_parts, sigs.view(np.uint32)

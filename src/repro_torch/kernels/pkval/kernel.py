@@ -9,9 +9,14 @@ along (at most ``MAX_PROBE`` slots), against the index's read-only
 chain, a tombstone (-2) is stepped over, AMBIG (-3) values pass through,
 and probes with parent ``< 0`` miss.
 
-The work is a few dependent 12-byte gathers per probe, so the kernel is
-bound by memory latency and traffic; it is one thread per probe reading
-the index through the read-only cache, with no padding of N.
+The inode index is larger than L2, so the kernel is bound by the latency
+of its reads: a lane group of 8 takes each probe, and every lane reads
+the three arrays at one slot of the probe's window at once (one round trip
+to device memory a window of 8 slots, not up to three a slot); two warp
+ballots give the first slot that holds the key or is EMPTY
+(:func:`~.ref.probe_window_ref` is the same function in plain PyTorch).
+Blocks of 128 threads take 16 probes each, so a few thousand probes spread
+over the card; no padding of N.
 """
 from __future__ import annotations
 

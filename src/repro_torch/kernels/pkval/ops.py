@@ -1,14 +1,15 @@
 """Grouped PK validation for the request path: host probes in, host ids out.
 
 The index triple lives on the device already (the columnar store keeps a
-device mirror of its hash index); only the probes travel.
+device mirror of its hash index); only the probes travel, parents and
+name hashes in one packed upload, and the ids come back in one copy.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..phash.ops import to_i32
+from .._staging import download_i32, upload_i32
 from . import kernel, ref
 from .ref import MAX_PROBE
 
@@ -33,8 +34,5 @@ def pkval_lookup(tp: torch.Tensor, tn: torch.Tensor, tv: torch.Tensor,
     n = len(parents)
     if n == 0:
         return np.zeros(0, np.int32)
-    par = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(parents, np.int64).astype(np.int32))).to(tp.device)
-    out = pkval(tp, tn, tv, par, to_i32(name_hashes, tp.device),
-                max_probe=max_probe)
-    return out.cpu().numpy()
+    par, nam = upload_i32([parents, name_hashes], tp.device)
+    return download_i32(pkval(tp, tn, tv, par, nam, max_probe=max_probe))

@@ -37,6 +37,40 @@ def probe_table_ref(tp: torch.Tensor, tn: torch.Tensor, tv: torch.Tensor,
     return out
 
 
+#: slots of one probe window, read at once: the kernel's lanes a probe
+WINDOW = 8
+
+
+def probe_window_ref(tp: torch.Tensor, tn: torch.Tensor, tv: torch.Tensor,
+                     par: torch.Tensor, nam: torch.Tensor,
+                     max_probe: int = MAX_PROBE) -> torch.Tensor:
+    """The kernel's form of :func:`probe_table_ref`: each probe reads a
+    window of ``WINDOW`` slots at once, and its answer is the first slot
+    of the window that holds the key (that slot's value) or EMPTY (-1);
+    windows follow in turn while neither shows, up to ``max_probe``
+    slots.  Equal to the step loop, bit for bit."""
+    cap = tp.shape[0]
+    home = bucket_hash_ref(par, nam) & (cap - 1)
+    nam64, tn64 = u32(nam), u32(tn)
+    out = torch.full(par.shape, -1, dtype=torch.int32, device=par.device)
+    open_ = par >= 0
+    lanes = torch.arange(WINDOW, device=par.device)
+    for w0 in range(0, max_probe, WINDOW):
+        inside = w0 + lanes < max_probe                        # [W]
+        j = (home[:, None] + w0 + lanes) & (cap - 1)           # [N, W]
+        ep = tp[j]
+        hit = inside & (ep >= 0) & (ep == par[:, None]) \
+            & (tn64[j] == nam64[:, None])
+        ends = hit | (inside & (ep == -1))
+        first = ends.to(torch.int32).argmax(1, keepdim=True)
+        val = torch.where(hit.gather(1, first), tv[j].gather(1, first),
+                          torch.full_like(first, -1, dtype=torch.int32))
+        found = open_ & ends.any(1)
+        out = torch.where(found, val.squeeze(1), out)
+        open_ = open_ & ~found
+    return out
+
+
 def pkval_ref(tp: torch.Tensor, tn: torch.Tensor, tv: torch.Tensor,
               parents: torch.Tensor, name_hashes: torch.Tensor, *,
               max_probe: int = MAX_PROBE) -> torch.Tensor:

@@ -259,6 +259,145 @@ def test_hintchain_routes_bit_equal(cuda, ccap, fcap, n_ops, route):
         assert (want[0] > 0).sum(1).max() >= 4 and (want[1] == 1).any()
 
 
+def _probe_table(cap, n_live, rng):
+    """A linear-probe table of n_live random keys with no bound on the
+    chain (windows of 8 and past them), 5% tombstones and 2% AMBIG, and
+    the keys: int64 numpy (tp, tn, tv, par, nam).  Small tables are filled
+    one key at a time and wrap past their last slot; large ones in bulk
+    (the main path's index, as chip_smoke.py builds it)."""
+    par = rng.integers(1, 1 << 30, size=n_live)
+    nam = rng.integers(0, 1 << 32, size=n_live)
+    home = np.array([t_col.HashIndex._mix(int(p), int(m)) & (cap - 1)
+                     for p, m in zip(par, nam)]) if cap <= 4096 else (
+        (((par * 0x9E3779B1) & 0xFFFFFFFF) ^ ((nam * 0x85EBCA6B)
+                                              & 0xFFFFFFFF)))
+    if cap > 4096:
+        home = (home ^ (home >> 16)) & (cap - 1)
+    tp, tn = np.full(cap, -1, np.int64), np.zeros(cap, np.int64)
+    if cap <= 4096:
+        slot = np.empty(n_live, np.int64)
+        for i, j in enumerate(home):
+            while tp[j] != -1:
+                j = (j + 1) & (cap - 1)
+            tp[j], slot[i] = 0, j
+    else:
+        order = np.argsort(home, kind="stable")
+        par, nam, home = par[order], nam[order], home[order]
+        i = np.arange(n_live)
+        slot = i + np.maximum.accumulate(home - i)
+        keep = slot < cap
+        par, nam, slot = par[keep], nam[keep], slot[keep]
+    tp[slot], tn[slot] = par, nam
+    tv = np.full(cap, -1, np.int64)
+    tv[slot] = 2 + np.arange(slot.size)
+    tomb = rng.random(slot.size) < 0.05
+    tp[slot[tomb]], tn[slot[tomb]], tv[slot[tomb]] = -2, 0, -1
+    tv[slot[~tomb & (rng.random(slot.size) < 0.02)]] = -3
+    return tp, tn, tv, par, nam
+
+
+@pytest.mark.parametrize("cap,n_live,n,max_probe", [
+    (1 << 23, 1_050_000, 2500, 8),    # the main path's index and first call
+    (1 << 12, 3_000, 1, 8),
+    (1 << 12, 3_000, 4099, 16),       # not a multiple of a block's probes
+    (1 << 10, 800, 1000, 3),          # long chains, windows that wrap
+    (1 << 10, 800, 1000, 8),
+    (1 << 10, 800, 1000, 16),
+])
+def test_pkval_windows_bit_equal(cuda, cap, n_live, n, max_probe):
+    """Lane groups reading a probe's window at once against the step loop
+    and its window form, through the kernel and the wrapper (one upload,
+    one copy back) on the card against the wrapper on the host."""
+    from repro_torch.kernels.pkval import ops as pk_ops
+    rng = np.random.default_rng(cap + n + max_probe)
+    tp, tn, tv, kpar, knam = _probe_table(cap, n_live, rng)
+    pick = rng.integers(0, kpar.size, size=n)
+    ppar, pnam = kpar[pick].copy(), knam[pick].copy()
+    r = rng.random(n)
+    ppar[r < 0.2] = rng.integers(1, 1 << 30, size=int((r < 0.2).sum()))
+    ppar[r > 0.9] = -1                                 # padding parents
+    idx = [_as_i32(a).to(cuda) for a in (tp, tn, tv)]
+    par, nam = _as_i32(ppar).to(cuda), _as_i32(pnam).to(cuda)
+    got = pk_kernel.pkval(*idx, par, nam, max_probe=max_probe)
+    want = pk_ref.pkval_ref(*idx, par, nam, max_probe=max_probe)
+    assert torch.equal(got, want)
+    assert torch.equal(got, pk_ref.probe_window_ref(*idx, par, nam,
+                                                    max_probe=max_probe))
+    host = pk_ops.pkval_lookup(*(t.cpu() for t in idx), ppar, pnam,
+                               max_probe=max_probe)
+    assert np.array_equal(pk_ops.pkval_lookup(*idx, ppar, pnam,
+                                              max_probe=max_probe), host)
+    if n >= 1000:
+        assert (got > 0).any() and {-1, -3} <= set(got.tolist())
+
+
+def _as_i32(a):
+    return torch.from_numpy((np.asarray(a, np.int64) & 0xFFFFFFFF)
+                            .astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n,d", [(1024, 16), (1, 16), (17, 16), (4099, 16),
+                                 (1000, 1), (333, 3), (64, 17), (5, 0)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_phash_chain_rows_bit_equal(cuda, n, d, aligned):
+    """Tiles of rows through shared memory against the plain version: the
+    planner's window, N = 1 and N not a multiple of a block's 16 rows,
+    D in {1, 3, 16, 17} (16-byte loads only where D % 4 == 0), views
+    4 bytes off 16-byte alignment (scalar loads and stores), and the
+    wrapper on the card against the wrapper on the host."""
+    from repro_torch.kernels.phash import ops as ph_ops
+    rng = np.random.default_rng(n + d)
+    arrays = [rng.integers(0, 2**32, size=s) for s in ((n, d), (n, d), n)]
+    arrays.append(rng.integers(-1, d + 2, size=n))     # depths past D too
+    args = [_as_i32(a).to(cuda) for a in arrays]
+    total = ph_kernel.layout(n, d)[2]
+    out = None
+    if not aligned:
+        views = []
+        for t in args[:2]:
+            buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=cuda)
+            buf[1:] = t.reshape(-1)
+            views.append(buf[1:].view(n, d))
+        args[:2] = views
+        out = torch.empty(total + 1, dtype=torch.int32, device=cuda)[1:]
+    got = ph_kernel.phash_chain(*args, 64, out=out)
+    want = ph_ref.phash_chain_ref(*args, 64)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    card = ph_ops.phash_chains(*arrays, 64, device=cuda)
+    for a, b in zip(card, ph_ops.phash_chains(*arrays, 64, device="cpu")):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_hash_index_mirror_on_card_after_writes(cuda):
+    """The card's mirror after dirty writes (one packed upload a refresh),
+    a growth (a whole copy) and more writes equals the host arrays."""
+    rng = np.random.default_rng(11)
+    idx = t_col.HashIndex(64)
+    keys = [(int(rng.integers(1, 500)), int(rng.integers(0, 2**32)))
+            for _ in range(600)]
+
+    def same():
+        mirror = idx.device_arrays(cuda)
+        return all(torch.equal(m.cpu(), torch.from_numpy(h)) for m, h in
+                   zip(mirror, (idx.par, idx.nam.view(np.int32), idx.val)))
+
+    for p, m in keys[:30]:
+        idx.set(p, m, p + 3)
+    assert same()
+    for p, m in keys[:10]:
+        idx.set(p, m, t_col.AMBIG)
+    for p, m in keys[10:20]:
+        idx.remove(p, m)
+    assert idx._dirty and same()
+    cap = idx.cap
+    for i, (p, m) in enumerate(keys[30:]):
+        idx.set(p, m, i + 2)
+    assert idx.cap > cap and same()
+    for p, m in keys[30:200]:
+        idx.remove(p, m)
+    assert same() and not idx._dirty
+
+
 def test_du_on_card_matches_cpu(cuda):
     def run(device):
         store = t_col.ColumnarMetadataStore(n_datanodes=4, device=device)

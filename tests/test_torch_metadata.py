@@ -1,5 +1,6 @@
-"""The compact form of the port's treeagg and the packed transfers of its
-hintchain, on the CPU, against the JAX package.
+"""The compact form of the port's treeagg, the packed transfers of its
+hintchain, pkval and phash_chain, the window form of pkval and the hash
+index's packed refresh, on the CPU, against the JAX package.
 
 The compact form's plain version (``treeagg_expand_ref``) is held against
 JAX's ``treeagg`` kernel (Pallas in interpret mode) followed by the JAX
@@ -20,12 +21,19 @@ import torch
 
 import repro.core.columnar as r_col
 import repro.kernels.hintchain.ops as r_hc_ops
+import repro.kernels.phash.ops as r_ph_ops
+import repro.kernels.pkval.ops as r_pk_ops
 import repro.kernels.treeagg.ops as r_ta_ops
 import repro_torch.core.columnar as t_col
 from repro_torch.core.workload import name_hash32
 from repro_torch.kernels import _build, _staging
 from repro_torch.kernels.hintchain import kernel as hc_kernel
 from repro_torch.kernels.hintchain import ops as hc_ops
+from repro_torch.kernels.phash import kernel as ph_kernel
+from repro_torch.kernels.phash import ops as ph_ops
+from repro_torch.kernels.phash import ref as ph_ref
+from repro_torch.kernels.pkval import ops as pk_ops
+from repro_torch.kernels.pkval import ref as pk_ref
 from repro_torch.kernels.treeagg import kernel as ta_kernel
 from repro_torch.kernels.treeagg import ops as ta_ops
 from repro_torch.kernels.treeagg import ref as ta_ref
@@ -160,6 +168,10 @@ def test_kernel_constants_match_source():
     assert const("kTaThreads") * const("kTaVecs") * 4 == T
     assert const("kWaveSmemCap") == ta_kernel.WAVE_SMEM_CAP
     assert const("kHcSmemCap") == hc_kernel.SMEM_CAP
+    # the deepest row leaves room for one row's fold operands (D | 1)
+    assert 4 * (ph_kernel.MAX_DEPTH | 1) <= const("kPcSmemCap") \
+        < 4 * ((ph_kernel.MAX_DEPTH + 1) | 1)
+    assert const("kPkLanes") == pk_ref.WINDOW
 
 
 @pytest.mark.parametrize("ccap,fcap,route", [
@@ -252,3 +264,166 @@ def test_hintchain_resolve_packed_on_cpu_matches_jax():
     assert {-2, -1} <= set(child.ravel().tolist())
     assert {0, 1} <= set(src.ravel().tolist())
     assert (child > 0).sum(axis=1).max() >= 4
+
+
+# ---------------------------------------------------------------------------
+# pkval: the window form and the packed lookup
+# ---------------------------------------------------------------------------
+
+def _probe_index(cap=256, load=0.8, seed=0):
+    """A linear-probe table filled to ``load`` with no bound on the chain
+    (the host index grows first; here the long chains are wanted), with
+    tombstones and AMBIG values, and probes: every stored key, misses and
+    padding parents.  int32 numpy arrays (tp, tn, tv, parents, names)."""
+    rng = np.random.default_rng(seed)
+    n = int(cap * load)
+    par = rng.integers(1, 1000, size=n)
+    nam = rng.integers(0, 2**32, size=n)
+    tp = np.full(cap, -1, np.int64)
+    tn = np.zeros(cap, np.int64)
+    tv = np.full(cap, -1, np.int64)
+    for i, (p, m) in enumerate(zip(par, nam)):
+        j = t_col.HashIndex._mix(int(p), int(m)) & (cap - 1)
+        while tp[j] != -1:
+            j = (j + 1) & (cap - 1)
+        tp[j], tn[j], tv[j] = p, m, 2 + i
+    placed = np.flatnonzero(tp >= 0)
+    tomb = rng.choice(placed, n // 10, replace=False)
+    tp[tomb], tn[tomb], tv[tomb] = -2, 0, -1
+    tv[rng.choice(np.setdiff1d(placed, tomb), n // 20, replace=False)] = -3
+    ppar = np.concatenate([par, rng.integers(1, 1000, size=n // 2), [-1] * 9])
+    pnam = np.concatenate([nam, rng.integers(0, 2**32, size=n // 2 + 9)])
+    as32 = (lambda a: (np.asarray(a, np.int64) & 0xFFFFFFFF)
+            .astype(np.uint32).view(np.int32))
+    return tuple(as32(a) for a in (tp, tn, tv, ppar, pnam))
+
+
+@pytest.mark.parametrize("max_probe", [0, 1, 3, 8, 13, 16])
+def test_pkval_window_form_matches_step_loop_and_jax(max_probe):
+    """The kernel's form (a window of 8 slots read at once, the first of
+    hit or EMPTY) against the step loop and JAX's kernel in interpret mode:
+    tombstones, AMBIG, windows that wrap past the last slot, chains of all
+    8 steps and past them, padding parents."""
+    tp, tn, tv, par, nam = arrays = _probe_index()
+    t = [torch.from_numpy(a) for a in arrays]
+    got = pk_ref.probe_window_ref(*t, max_probe=max_probe)
+    assert torch.equal(got, pk_ref.pkval_ref(*t, max_probe=max_probe))
+    jax_out = r_pk_ops.pkval_lookup(tp, tn.view(np.uint32), tv, par,
+                                    nam.view(np.uint32), max_probe=max_probe)
+    assert np.array_equal(got.numpy(), np.asarray(jax_out))
+    if max_probe == 8:
+        cap = tp.size
+        home = pk_ref.bucket_hash_ref(t[3], t[4]).numpy() & (cap - 1)
+        steps = np.array([next((s for s in range(4 * cap) if tp[(h + s) % cap]
+                                == p and tn[(h + s) % cap] == m), -1)
+                          for h, p, m in zip(home, par, nam)])
+        hit = got.numpy() != -1
+        assert {-1, -3} <= set(got.numpy().tolist()) and (got > 0).any()
+        assert (steps[hit] == 7).any()                # all 8 steps
+        assert ((steps >= 8) & (par >= 0)).any()       # missed after 8
+        assert (hit & (home + steps >= cap)).any()     # wrapped window
+
+
+@pytest.mark.parametrize("n", [1024, 999, 1])
+def test_pkval_lookup_packed_on_cpu_matches_jax(n):
+    """Parents and names in one packed upload, the ids back in one copy:
+    equal to JAX's lookup at the main path's size and ragged ones."""
+    tp, tn, tv, par, nam = _probe_index(cap=2048, load=0.45, seed=n)
+    rng = np.random.default_rng(n)
+    pick = rng.integers(0, par.size, size=n)
+    ppar = par[pick].astype(np.int64)
+    pnam = nam[pick].view(np.uint32).astype(np.int64)
+    got = pk_ops.pkval_lookup(*(torch.from_numpy(a) for a in (tp, tn, tv)),
+                              ppar, pnam)
+    want = r_pk_ops.pkval_lookup(tp, tn.view(np.uint32), tv, ppar, pnam)
+    assert got.dtype == np.int32 and got.shape == (n,)
+    assert np.array_equal(got, np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# phash_chain: the packed output
+# ---------------------------------------------------------------------------
+
+def _chain_rows(n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    par = rng.integers(0, 2**32, size=(n, d))
+    nam = rng.integers(0, 2**32, size=(n, d))
+    hints = rng.integers(0, 2**32, size=n)
+    depths = rng.integers(0, d + 1, size=n)
+    past = np.arange(d) >= depths[:, None]
+    par[past], nam[past] = 0, 0
+    return par, nam, hints, depths
+
+
+@pytest.mark.parametrize("n,d", [(1024, 16), (1000, 16), (37, 3), (1, 17),
+                                 (513, 1)])
+def test_phash_chains_packed_on_cpu_matches_jax(n, d):
+    """Four arrays in one packed upload, the three results back from one
+    packed buffer: equal to JAX's at the planner's window (N=1,024,
+    D=16), ragged N and odd D."""
+    par, nam, hints, depths = _chain_rows(n, d, seed=n + d)
+    got = ph_ops.phash_chains(par, nam, hints, depths, 64, device="cpu")
+    want = r_ph_ops.phash_chains(par, nam, hints, depths, 64)
+    for g, w, dtype in zip(got, want, (np.int32, np.int32, np.uint32)):
+        assert g.dtype == dtype and np.array_equal(g, np.asarray(w))
+    assert got[0].shape == (n, d)
+
+
+@pytest.mark.parametrize("n,d", [(1024, 16), (5, 3), (1, 1), (0, 4)])
+def test_phash_chain_packed_layout_round_trips(n, d):
+    """``unpack`` reads back, from a tensor and from a host array, what the
+    kernel writes where ``layout`` says: comp, then the hint partitions,
+    then the signatures."""
+    hint_at, sig_at, total = ph_kernel.layout(n, d)
+    assert (hint_at, sig_at, total) == (n * d, n * d + n, n * d + 2 * n)
+    args = [_staging.low32(a) for a in _chain_rows(n, d, seed=d)]
+    res = ph_ref.phash_chain_ref(*(torch.from_numpy(a) for a in args), 64)
+    packed = torch.cat([t.reshape(-1) for t in res])
+    assert packed.shape == (total,)
+    for form in (packed, packed.numpy()):
+        parts = ph_kernel.unpack(form, n, d)
+        for g, r in zip(parts, res):
+            assert tuple(g.shape) == tuple(r.shape)
+            assert np.array_equal(np.asarray(g), r.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the hash index's mirror: one packed upload a refresh
+# ---------------------------------------------------------------------------
+
+def test_hash_index_packed_refresh_equals_host(monkeypatch):
+    """After sets, removes and a growth, the mirror refreshed by one packed
+    upload (the dirty slots and their three values) equals the host
+    arrays."""
+    uploads = []
+    real = t_col.upload_i32
+    monkeypatch.setattr(t_col, "upload_i32",
+                        lambda arrays, device: uploads.append(len(arrays))
+                        or real(arrays, device))
+    rng = np.random.default_rng(7)
+    idx = t_col.HashIndex(64)
+    keys = [(int(rng.integers(1, 500)), int(rng.integers(0, 2**32)))
+            for _ in range(400)]
+
+    def same():
+        mirror = idx.device_arrays("cpu")
+        host = (idx.par, idx.nam.view(np.int32), idx.val)
+        return all(np.array_equal(m.numpy(), h) for m, h in zip(mirror,
+                                                                 host))
+
+    for p, m in keys[:20]:
+        idx.set(p, m, p + 7)
+    assert same() and uploads == []          # the first call: a whole copy
+    for p, m in keys[:10]:
+        idx.set(p, m, -3)                    # AMBIG over existing keys
+    for p, m in keys[10:15]:
+        idx.remove(p, m)                     # tombstones
+    assert idx._dirty and same() and uploads == [2]
+    cap = idx.cap
+    for i, (p, m) in enumerate(keys[20:]):
+        idx.set(p, m, i + 2)                 # grows: a whole copy again
+    assert idx.cap > cap and same() and uploads == [2]
+    for p, m in keys[20:60]:
+        idx.remove(p, m)
+    idx.set(*keys[0], 99)
+    assert same() and uploads == [2, 2] and not idx._dirty
