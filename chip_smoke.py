@@ -6,8 +6,9 @@
 
 Drives the ported paths, the metadata request path (phases 2-4), the
 zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
-(phases 8-10).  Phases, each printing its results on lines of its own;
-any failure raises and the script exits non-zero:
+(phases 8-10), and the metadata path under failover (phase 11).  Phases,
+each printing its results on lines of its own; any failure raises and the
+script exits non-zero:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``) and
    the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -126,6 +127,25 @@ any failure raises and the script exits non-zero:
    ``ServeEngine(max_batch=4, max_seq=256)`` on 4 requests of 8-64 prompt
    tokens, 16 new tokens each, with its time per decode step.
 10. Host check at full width and 4 layers, as phase 7.
+11. Failover at deployment size: phase 3's build on the card, 1M inodes
+    and all, started with 2 namenodes under an ``ElasticNamenodePool`` of
+    2 to 4 (FAILOVER_POOL) attached by ``DFSClient.attach_pool``, and
+    phase 3's trace replayed through ``replay_with_recovery``, the §7.6
+    protocol, with FAILOVER_PLAN injected: the leader's crash at a batch
+    exchange after the first scale-out, a partition of namenode 1, a
+    delay on the first joiner and a crash between a subtree delete's
+    chunk commits.  Then ``du /`` and the 1,024-stat batch, as phase 3.
+    Checks, any failure raising: every planned fault fired, the pool
+    scaled out and in; each of the five metadata kernels launched, its
+    first call bit-equal to its plain version; no orphan lease, UC or
+    block row, no stale subtree lock, every lock released
+    (``RecoveryInvariants``); the same build, plan and trace on the host
+    byte-equal to the card's run (state, outcomes, du, batch, the chaos
+    report, pool events, counts); every op's outcome equal to phase 3's,
+    and, once both are quiesced (``quiesce``), every table but the
+    election's equal to phase 3's up to ids and clocks; ``profile_ops``
+    equal on card and host.  Prints the build, replay and recovery
+    times, the scale and fault events and the peak device bytes.
 
 The line before the last is the kernels' JSON (nine kernels), the last
 line the device JSON.  Without a CUDA device, or outside the repository,
@@ -680,14 +700,14 @@ BIG_WAVE = 100_000
 SUBTREE_PARALLELISM = 1
 
 
-def build(columnar: bool, bulk: int, dev):
+def build(columnar: bool, bulk: int, dev, n_namenodes: int = 4):
     import repro_torch.core as T
     from repro_torch.core.columnar import ColumnarMetadataStore
     from repro_torch.core.workload import NamespaceSpec, SyntheticNamespace
     cls = ColumnarMetadataStore if columnar else T.MetadataStore
     store = cls(n_datanodes=4, device=dev)
     T.format_fs(store)
-    cluster = T.NamenodeCluster(store, 4)
+    cluster = T.NamenodeCluster(store, n_namenodes)
     for nn in cluster.namenodes:
         nn.subtree.parallelism = SUBTREE_PARALLELISM
     ns = SyntheticNamespace(NamespaceSpec(), n_dirs=127, files_per_dir=16)
@@ -697,31 +717,45 @@ def build(columnar: bool, bulk: int, dev):
     return store, cluster, ns
 
 
-def drive(columnar: bool, bulk: int, n_ops: int, dev, on_start=None):
+def drive(columnar: bool, bulk: int, n_ops: int, dev, on_start=None,
+          failover: bool = False):
     """Build, replay the trace, du the namespace, then the client batch;
-    returns results."""
+    returns results.  With ``failover`` (phase 11) the cluster starts with
+    FAILOVER_NAMENODES namenodes and the trace replays under the elastic
+    pool and the fault plan, recovered by the §7.6 protocol
+    (``failover_replay``)."""
     import repro_torch.core as T
     from repro_torch.core.workload import make_spotify_trace
     t0 = time.perf_counter()
-    store, cluster, ns = build(columnar, bulk, dev)
+    store, cluster, ns = build(columnar, bulk, dev,
+                               FAILOVER_NAMENODES if failover else 4)
     t_build = time.perf_counter() - t0
     trace = make_spotify_trace(ns, n_ops, seed=5)
     client = T.DFSClient(cluster)
-    # keep the pipeline run_trace builds, to read its plan report
-    pipes = []
+    # keep the planned pipeline the replay builds, to read its plan report,
+    # and the wall time of its run
+    pipes, spans = [], []
     real_run = T.PlannedRequestPipeline.run
 
     def run(self, wops):
         pipes.append(self)
-        return real_run(self, wops)
+        t = time.perf_counter()
+        try:
+            return real_run(self, wops)
+        finally:
+            spans.append(time.perf_counter() - t)
 
     T.PlannedRequestPipeline.run = run
     if on_start:
         on_start()
     t1 = time.perf_counter()
+    extra = {}
     try:
-        stats = client.run_trace(trace, planned=True, batch_size=64,
-                                 window=1024, adaptive=False)
+        if failover:
+            stats, extra = failover_replay(client, trace)
+        else:
+            stats = client.run_trace(trace, planned=True, batch_size=64,
+                                     window=1024, adaptive=False)
     finally:
         T.PlannedRequestPipeline.run = real_run
     t_trace = time.perf_counter() - t1
@@ -752,9 +786,10 @@ def drive(columnar: bool, bulk: int, n_ops: int, dev, on_start=None):
         counts["nn_" + k] = sum(getattr(nn, k) for nn in nns)
     counts["nn_treeagg_mismatches"] = sum(nn.subtree.treeagg_mismatches
                                           for nn in nns)
-    return dict(store=store, stats=stats, runs=runs, paths=paths, du=du,
-                counts=counts, t_build=t_build, t_trace=t_trace,
-                t_du=t_du, t_batch=t_batch)
+    return dict(store=store, cluster=cluster, stats=stats, runs=runs,
+                paths=paths, du=du, counts=counts, t_build=t_build,
+                t_trace=t_trace, t_pipeline=spans[0], t_du=t_du,
+                t_batch=t_batch, **extra)
 
 
 def outcomes(r, physical: bool = True):
@@ -810,8 +845,7 @@ def replay_differences(a, b) -> list:
         i = _first_diff(ba, bb)
         out.append(f"batch run {i} differs")
     for what, ka, kb in (("counts", a["counts"], b["counts"]),
-                         ("OpCost", a["stats"].total_cost.as_dict(),
-                          b["stats"].total_cost.as_dict())):
+                         ("OpCost", _total_cost(a), _total_cost(b))):
         keys = sorted(k for k in set(ka) | set(kb) if ka.get(k) != kb.get(k))
         if keys:
             out.append(f"{what}: " + ", ".join(
@@ -819,14 +853,21 @@ def replay_differences(a, b) -> list:
     return out
 
 
-def canonical_state(store):
-    """Every table's rows (``id_seq``, the id allocators' positions, left
-    out) with inode ids replaced by paths, block ids by (file path, block
-    index), and the namenodes' own atime/mtime clocks left out: what two
-    runs must share when the same ops ran on other namenodes, which draw
-    other ids and stamp other times.  An id whose inode is gone (the lease
-    rows that deleted files leave behind) becomes "no inode": such rows
-    are compared by their number only."""
+def _total_cost(r) -> dict:
+    """The replay's OpCost: the pipeline's, or a chaos report's outcomes'."""
+    st = r["stats"]
+    cost = st.total_cost if hasattr(st, "total_cost") else st.outcome_cost
+    return cost.as_dict()
+
+
+def canonical_state(store, skip=("id_seq",)):
+    """Every table's rows but ``skip``'s (``id_seq``, the id allocators'
+    positions, by default) with inode ids replaced by paths, block ids by
+    (file path, block index), and the namenodes' own atime/mtime clocks
+    left out: what two runs must share when the same ops ran on other
+    namenodes, which draw other ids and stamp other times.  An id whose
+    inode is gone (the lease rows that deleted files leave behind) becomes
+    "no inode": such rows are compared by their number only."""
     by_id = {r["id"]: r for part in store.table("inode").parts
              for r in part.values()}
     paths = {1: ""}                            # the root inode
@@ -848,7 +889,7 @@ def canonical_state(store):
               for part in store.table("block").parts for r in part.values()}
     out = {}
     for name, t in store.tables.items():
-        if name == "id_seq":
+        if name in skip:
             continue
         rows = []
         for part in t.parts:
@@ -861,6 +902,275 @@ def canonical_state(store):
                     if k not in ("atime", "mtime")))
         out[name] = sorted(rows, key=repr)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: failover at deployment size
+# ---------------------------------------------------------------------------
+
+#: phase 11's cluster starts with this many namenodes, under an elastic pool
+#: of 2 to 4 alive.  A tick of the pool (one a planner window) reads the
+#: load as (ops served since the last tick + ops still queued) / namenodes
+#: alive: 10,000 after the first of the trace's 20 windows, under 1,500
+#: from the 18th, so the pool scales out in the first windows (again after
+#: the crashes) and back in at the end
+FAILOVER_NAMENODES = 2
+FAILOVER_POOL = dict(min_namenodes=2, max_namenodes=4, high_load=4000.0,
+                     low_load=1500.0, hysteresis=1, cooldown=1)
+#: phase 11's faults, fired in the replay: (site, at, victim, kind,
+#: heal_after, delay_ticks); ``at`` counts a site's firings from 0 over all
+#: namenodes.  Namenode 0, the leader, crashes at the last batch exchange
+#: of the window after the first scale-out (exchange 33; the pool scales
+#: out after exchange 16); namenode 1 is cut off from the client for two
+#: exchanges from the last of the next window (51); the first joiner,
+#: namenode 2, limps for two exchanges from exchange 80 (2 ticks each); and
+#: a namenode dies between two chunk commits of a subtree delete (before
+#: chunk commit 32).  A batch refused or orphaned by a death is re-dealt
+#: only at its window's end, after the window's later batches (the
+#: reference's planner does this too: ROADMAP queue 3), so each fault
+#: strikes where no later op of its window reads what it would change:
+#: the run must end where the fault-free phase 3 ends.  The exchange
+#: counts do not depend on --bulk (the trace never touches /bulk)
+FAILOVER_PLAN = (
+    ("batch_exchange", 33, 0, "crash", 3, 2),
+    ("batch_exchange", 51, 1, "partition", 1, 2),
+    ("batch_exchange", 80, 2, "delay", 2, 2),
+    ("subtree_chunk", 32, None, "crash", 3, 2),
+)
+#: tables the phase-3 comparison leaves out beside ``id_seq``: the
+#: election's heartbeat rows, one per namenode alive or crashed, differ
+#: with the membership by design
+FAILOVER_SKIP = ("id_seq", "leader")
+
+
+def failover_replay(client, trace):
+    """Phase 11's replay: an ElasticNamenodePool attached to ``client``
+    (``DFSClient.attach_pool``), FAILOVER_PLAN's injector, and the trace
+    through ``replay_with_recovery(planned=True)``, the §7.6 protocol, with
+    the planned pipeline ``DFSClient.run_trace`` builds (batches of 64,
+    windows of 1,024, the client's hint cache, the pool ticked once a
+    window).  Joiners run their subtree pools at SUBTREE_PARALLELISM as
+    the founders do.  Returns the ChaosReport and the pool, the injector
+    and, for each scale event, the batch exchanges fired before it."""
+    import repro_torch.core as T
+    import repro_torch.core.batch_planner as bp
+    cluster = client.cluster
+    pool = T.ElasticNamenodePool(cluster, **FAILOVER_POOL)
+    client.attach_pool(pool)
+    inj = T.FaultInjector(T.ChaosPlan(tuple(
+        T.Fault(T.FaultSite(site), at=at, victim=victim, kind=kind,
+                heal_after=heal, delay_ticks=ticks)
+        for site, at, victim, kind, heal, ticks in FAILOVER_PLAN)), cluster)
+    scale_at = []
+
+    def on_scale(ev):
+        for nn in cluster.namenodes:
+            nn.subtree.parallelism = SUBTREE_PARALLELISM
+        scale_at.append((ev.action, ev.nn_id,
+                         inj.counts[T.FaultSite.BATCH_EXCHANGE]))
+
+    pool.subscribe(on_scale)
+    real = bp.PlannedRequestPipeline
+
+    class Planned(real):
+        def __init__(self, cluster, batch_size):
+            super().__init__(cluster, batch_size=batch_size, window=1024,
+                             adaptive=False, client_cache=client.hint_cache,
+                             pool=client.pool)
+
+    bp.PlannedRequestPipeline = Planned
+    try:
+        rep = T.replay_with_recovery(cluster, trace, injector=inj,
+                                     batch_size=64, planned=True)
+    finally:
+        bp.PlannedRequestPipeline = real
+    return rep, dict(pool=pool, injector=inj, scale_at=scale_at)
+
+
+def quiesce(cluster) -> None:
+    """The leader's housekeeping once every lease has outlived its limit:
+    heartbeat rounds past ``lease_limit``, the lease-recovery sweep and the
+    lease-path scrub.  Phase 11 holds its final state against phase 3's,
+    both brought to this point: the trace's one lease holder renews at
+    every write, on a clock the pool and the DELAY fault move and phase 3
+    never does."""
+    limit = cluster.alive_namenodes()[0].ops.lease_limit
+    for _ in range(limit + 1):
+        cluster.tick()
+    cluster.recover_leases()
+    cluster.scrub_leases()
+
+
+def chaos_report(rep) -> dict:
+    """A ChaosReport as plain data."""
+    return {"outcomes": [(o.ok, o.error, o.batched,
+                          None if o.result is None else o.result.value,
+                          None if o.result is None
+                          else o.result.cost.as_dict())
+                         for o in rep.outcomes],
+            "ok": rep.ok, "failed": rep.failed,
+            "recovery_rounds": rep.recovery_rounds,
+            "retried_ops": rep.retried_ops,
+            "events": [(e.site.value, e.occurrence, e.nn_id, e.kind,
+                        e.action) for e in rep.events],
+            "outcome_cost": rep.outcome_cost.as_dict(),
+            "housekeeping_cost": rep.housekeeping_cost.as_dict(),
+            "per_nn_delta": {k: v.as_dict()
+                             for k, v in rep.per_nn_delta.items()}}
+
+
+def failover_differences(a, b) -> list:
+    """``replay_differences`` of two phase-11 runs, and every field of their
+    chaos reports, pool events and samples, and scale points that
+    differs."""
+    out = replay_differences(a, b)
+    ra, rb = chaos_report(a["stats"]), chaos_report(b["stats"])
+    out += [f"ChaosReport {k} differs" for k in ra if ra[k] != rb[k]]
+    for what, fn in (("pool events", lambda r: [
+            (e.t, e.action, e.nn_id, e.reason, e.migrated_entries)
+            for e in r["pool"].events]),
+            ("pool samples", lambda r: [
+                (s.t, s.alive, s.ops_delta, s.queue_depth, s.load)
+                for s in r["pool"].samples]),
+            ("scale points", lambda r: r["scale_at"])):
+        if fn(a) != fn(b):
+            out.append(f"{what}: {fn(a)!r} vs {fn(b)!r}")
+    return out
+
+
+def kernel_pairs() -> dict:
+    """Each metadata kernel's binding, its plain version, its work count and
+    the binding the Recorder keeps its first call under."""
+    from repro_torch.kernels.hintchain import kernel as hk, ref as hr
+    from repro_torch.kernels.phash import kernel as pk, ref as pr
+    from repro_torch.kernels.pkval import kernel as vk, ref as vr
+    from repro_torch.kernels.treeagg import kernel as tk, ref as tr
+    return {"phash": (pk.phash, pr.phash_ref, work_phash, "phash"),
+            "phash_chain": (pk.phash_chain, pr.phash_chain_ref,
+                            work_phash_chain, "phash_chain"),
+            "pkval": (vk.pkval, vr.pkval_ref, work_pkval, "pkval"),
+            "hintchain": (hk.hintchain, hr.hintchain_ref, work_hintchain,
+                          "hintchain"),
+            "treeagg": (tk.treeagg_compact, tr.treeagg_expand_ref,
+                        work_treeagg, "treeagg_compact")}
+
+
+def first_call(name, kern, plain, args, kw):
+    """The kernel and its plain version on a recorded call's inputs, in the
+    plain version's form; raises unless bit-equal."""
+    from repro_torch.kernels.treeagg import kernel as tk
+    got, want = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    if name == "treeagg":
+        got = tk.unpack(got, args[0].numel(), args[2].numel())
+        want = tuple(t.cpu() for t in want)
+    if not same(got, want):
+        raise AssertionError(f"{name}: kernel != plain on main path")
+    return got, want
+
+
+def phase_failover(args, dev, phase3) -> None:
+    """Phase 11 (module docstring); ``phase3`` holds phase 3's outcomes and
+    its quiesced canonical state."""
+    import repro_torch.core as T
+    from repro_torch.core.cluster_sim import profile_ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = Recorder()
+    try:
+        card = drive(True, args.bulk, args.ops, dev,
+                     on_start=reset_launch_counts, failover=True)
+        launches = launch_counts()
+    finally:
+        rec.restore()
+    rep, pool, inj = card["stats"], card["pool"], card["injector"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase11 store: inodes={card['store'].table('inode').n_rows} "
+        f"namenodes {FAILOVER_NAMENODES} -> {len(card['cluster'].namenodes)}"
+        f" (alive {len(card['cluster'].alive_namenodes())}); "
+        f"build_s={card['t_build']:.3f} "
+        f"replay_s={card['t_pipeline']:.3f} "
+        f"recovery_s={card['t_trace'] - card['t_pipeline']:.3f} "
+        f"du_s={card['t_du']:.3f} batch_s={card['t_batch']:.3f}")
+    log(f"phase11 report: ops={len(rep.outcomes)} ok={rep.ok} "
+        f"failed={rep.failed} recovery_rounds={rep.recovery_rounds} "
+        f"retried_ops={rep.retried_ops} "
+        f"outcome_round_trips={rep.outcome_cost.round_trips} "
+        f"housekeeping_round_trips={rep.housekeeping_cost.round_trips}")
+    log("phase11 scale events: " + "; ".join(
+        f"t={e.t} {e.action} nn{e.nn_id} ({e.reason}) "
+        f"migrated={e.migrated_entries}" for e in pool.events)
+        + " | batch exchanges before each: " + json.dumps(card["scale_at"]))
+    log("phase11 fault events: " + "; ".join(
+        f"{e.site.value}#{e.occurrence} nn{e.nn_id} {e.kind} {e.action}"
+        for e in inj.events))
+    log(f"phase11 counts: {json.dumps(card['counts'])}")
+    log(f"phase11 launches: {json.dumps(launches)} "
+        f"peak_device_bytes={peak}")
+    # every planned fault fired, the leader's crash after the first
+    # scale-out, and the pool moved both ways
+    if inj.pending:
+        raise AssertionError(f"faults never fired: {inj.pending}")
+    outs = [k for k in pool.events if k.action == "scale_out"]
+    if not outs or pool.scale_ins < 1:
+        raise AssertionError(f"pool: {pool.scale_outs} scale-outs, "
+                             f"{pool.scale_ins} scale-ins")
+    crash0 = next(e for e in inj.events
+                  if e.action == "killed" and e.nn_id == 0)
+    if crash0.occurrence < card["scale_at"][0][2]:
+        raise AssertionError("namenode 0 crashed before the first scale-out")
+    # 1. each kernel launched, its first call bit-equal to its plain version
+    missing = [k for k in REPLACES if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"failover path never launched {missing}")
+    for name, (kern, plain, _, binding) in kernel_pairs().items():
+        first_call(name, kern, plain, *rec.calls[binding])
+    rec.calls.clear()
+    log("phase11 kernels: " + ", ".join(
+        f"{k} {launches[k]} launches" for k in REPLACES)
+        + "; each first call bit-equal to its plain version")
+    # 3. recovery invariants: no orphan lease, UC or block rows, no stale
+    # subtree lock, every lock released
+    T.RecoveryInvariants(card["store"], card["cluster"]).assert_all()
+    log("phase11 RecoveryInvariants: 0 orphan lease, lease_path, "
+        "under-construction and block rows, 0 subtree locks, LockManager "
+        "released")
+    # 2. the same build, plan and trace on the host, byte-equal
+    host = drive(True, args.bulk, args.ops, torch.device("cpu"),
+                 failover=True)
+    differ = failover_differences(card, host)
+    if differ:
+        raise AssertionError("phase 11 card run (first) != host run "
+                             "(second): " + "; ".join(differ))
+    log(f"phase11 host: state, {len(rep.outcomes)} outcomes, du, batch, "
+        f"ChaosReport, pool events, counts equal; "
+        f"host replay_s={host['t_pipeline']:.3f} "
+        f"recovery_s={host['t_trace'] - host['t_pipeline']:.3f}")
+    del host
+    # 4. the fault-free run: the same outcomes and, quiesced, the same
+    # tables up to ids and clocks
+    ops, du, stats = outcomes(card, physical=False)
+    wrong = [i for i, (x, y) in enumerate(zip(ops, phase3["ops"])) if x != y]
+    if wrong or (du, stats) != phase3["rest"]:
+        raise AssertionError(f"outcomes differ from phase 3's at ops "
+                             f"{wrong[:20]} ({len(wrong)} in all)")
+    quiesce(card["cluster"])
+    canon = canonical_state(card["store"], skip=FAILOVER_SKIP)
+    differ = [k for k in sorted(set(canon) | set(phase3["canon"]))
+              if canon.get(k) != phase3["canon"].get(k)]
+    if differ:
+        raise AssertionError(f"quiesced tables {differ} != phase 3's")
+    log(f"phase11 fault-free: outcomes equal phase 3's ({rep.failed} "
+        f"failed in both, 0 beyond), du and batch equal; quiesced, "
+        f"{len(canon)} tables ({sum(map(len, canon.values()))} rows) "
+        f"equal phase 3's up to ids and clocks")
+    del card, canon
+    # 5. the DES's profiles, measured on the card and on the host
+    cp, hp = profile_ops(device=dev), profile_ops(device="cpu")
+    if cp != hp:
+        raise AssertionError("profile_ops on the card != on the host")
+    log(f"phase11 profile_ops: {len(cp)} profiles equal on card and host")
 
 
 # ---------------------------------------------------------------------------
@@ -2148,28 +2458,11 @@ def main() -> int:
         + ", ".join(f"{c}+{f}" for c, f in rec.hint_slots))
 
     # kernels vs plain on the main path's own inputs
-    from repro_torch.kernels.hintchain import kernel as hk, ref as hr
-    from repro_torch.kernels.phash import kernel as pk, ref as pr
-    from repro_torch.kernels.pkval import kernel as vk, ref as vr
-    from repro_torch.kernels.treeagg import kernel as tk, ref as tr
-    pairs = {"phash": (pk.phash, pr.phash_ref, work_phash, "phash"),
-             "phash_chain": (pk.phash_chain, pr.phash_chain_ref,
-                             work_phash_chain, "phash_chain"),
-             "pkval": (vk.pkval, vr.pkval_ref, work_pkval, "pkval"),
-             "hintchain": (hk.hintchain, hr.hintchain_ref, work_hintchain,
-                           "hintchain"),
-             "treeagg": (tk.treeagg_compact, tr.treeagg_expand_ref,
-                         work_treeagg, "treeagg_compact")}
+    from repro_torch.kernels.hintchain import kernel as hk
     rows = []
-    for name, (kern, plain, work, binding) in pairs.items():
+    for name, (kern, plain, work, binding) in kernel_pairs().items():
         a, kw = rec.calls[binding]
-        got, want = kern(*a, **kw), plain(*a, **kw)
-        torch.cuda.synchronize()
-        if binding == "treeagg_compact":
-            got = tk.unpack(got, a[0].numel(), a[2].numel())
-            want = tuple(t.cpu() for t in want)
-        if not same(got, want):
-            raise AssertionError(f"{name}: kernel != plain on main path")
+        got, want = first_call(name, kern, plain, a, kw)
         ms = device_ms(lambda: kern(*a, **kw))
         call_ms = cuda_ms(lambda: kern(*a, **kw))
         plain_ms = cuda_ms(lambda: plain(*a, **kw), reps=5, warmup=1)
@@ -2225,7 +2518,14 @@ def main() -> int:
         f"{2 * len(col['paths'])} batch stats equal; dump_state "
         f"byte-equal={bytes_equal} with {demoted} demotions; "
         f"dict trace_s={oracle['t_trace']:.3f} du_s={oracle['t_du']:.3f}")
-    del col, oracle
+    del oracle, canon
+    # what phase 11 is held to: phase 3's outcomes, and its tables once
+    # quiesced
+    ops3, *rest3 = outcomes(col, physical=False)
+    quiesce(col["cluster"])
+    phase3 = dict(ops=ops3, rest=tuple(rest3),
+                  canon=canonical_state(col["store"], skip=FAILOVER_SKIP))
+    del col
 
     # -- phases 5 to 7 -----------------------------------------------------
     t5 = time.perf_counter()
@@ -2248,10 +2548,15 @@ def main() -> int:
     phase_host("rwkv6_3b", params, RWKV_HOST_LAYERS, args.seed, dev,
                "phase10")
     del params
+
+    # -- phase 11 ----------------------------------------------------------
+    t11 = time.perf_counter()
+    phase_failover(args, dev, phase3)
     t_end = time.perf_counter()
     log(f"phase5_s={t6 - t5:.1f} phase6_s={t7 - t6:.1f} "
         f"phase7_s={t8 - t7:.1f} phase8_s={t9 - t8:.1f} "
-        f"phase9_s={t10 - t9:.1f} phase10_s={t_end - t10:.1f}")
+        f"phase9_s={t10 - t9:.1f} phase10_s={t11 - t10:.1f} "
+        f"phase11_s={t_end - t11:.1f}")
     log(f"total_s={t_end - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -436,6 +436,51 @@ def test_planned_replay_on_card_matches_cpu(cuda):
     assert counts["phash_chain"] and counts["pkval"] and counts["hintchain"]
 
 
+def test_chaos_replay_on_card_matches_cpu(cuda):
+    """A namenode crashes holding a grouped transaction's row locks in a
+    planned replay on the columnar store, and the §7.6 protocol recovers:
+    the card and the host end byte-equal in state, in every outcome and
+    cost, in the injector's events and in the report's costs, and the
+    card's mirrors equal its host columns."""
+    def replay(device):
+        store = t_col.ColumnarMetadataStore(n_datanodes=4, device=device)
+        T.format_fs(store)
+        cluster = T.NamenodeCluster(store, 4)
+        for nn in cluster.namenodes:
+            nn.subtree.parallelism = 1
+        ns = t_wl.SyntheticNamespace(t_wl.NamespaceSpec(), n_dirs=20,
+                                     files_per_dir=4)
+        T.materialize_namespace(cluster.namenodes[0], ns)
+        trace = t_wl.make_spotify_trace(ns, 900, seed=5)
+        inj = T.FaultInjector(T.ChaosPlan((T.Fault(
+            T.FaultSite.GROUP_TXN_POST_LOCK, at=1),)), cluster)
+        rep = T.replay_with_recovery(cluster, trace, injector=inj,
+                                     batch_size=64, planned=True)
+        inv = T.RecoveryInvariants(store, cluster)
+        assert inv.orphan_violations() == [] and inv.lock_violations() == []
+        inode = store.table("inode")
+        hx = inode.hindex
+        mirror = hx.device_arrays(store.device)
+        assert all(torch.equal(m.cpu(), torch.from_numpy(h)) for m, h in
+                   zip(mirror, (hx.par, hx.nam.view(np.int32), hx.val)))
+        return (store.dump_state(),
+                [(o.ok, o.error, None if o.result is None
+                  else o.result.cost.as_dict()) for o in rep.outcomes],
+                [(e.site.value, e.occurrence, e.nn_id, e.action)
+                 for e in rep.events],
+                (rep.recovery_rounds, rep.retried_ops,
+                 rep.outcome_cost.as_dict(), rep.housekeeping_cost.as_dict(),
+                 {k: v.as_dict() for k, v in rep.per_nn_delta.items()}))
+
+    cpu = replay("cpu")
+    reset_launch_counts()
+    card = replay(cuda)
+    assert card == cpu
+    assert [e[3] for e in card[2]] == ["killed"]
+    counts = launch_counts()
+    assert counts["phash_chain"] and counts["pkval"] and counts["hintchain"]
+
+
 # ---------------------------------------------------------------------------
 # the model kernels: fp32 math on bf16 or fp32 inputs, so within tolerances
 # (tests/test_kernels.py's: flash atol 2e-5 fp32 / 2e-2 bf16 with rtol

@@ -48,6 +48,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.kernels.mamba2_ssd.ops\n"
             "import repro_torch.kernels.rwkv6_scan.ops\n"
             "import repro_torch.kernels.moe_gmm.ops\n"
+            "import repro_torch.core.cluster_sim, repro_torch.core.costmodel\n"
+            "import repro_torch.metaplane, repro_torch.ckpt, repro_torch.data\n"
+            "import repro_torch.runtime\n"
             "print(len(repro_torch.core.__all__))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
