@@ -190,8 +190,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     if not is_global:
                         mask = mask & wmask
                 else:
-                    mask = mask & torch.where(torch.as_tensor(is_global),
-                                              True, wmask)
+                    mask = mask & torch.where(
+                        torch.as_tensor(is_global, device=dev), True, wmask)
             s_ = torch.where(mask, s_, -math.inf)
             m1 = torch.maximum(m, s_.amax(-1))
             # guard fully-masked rows (m1 = -inf)

@@ -1,14 +1,16 @@
-"""Model assembly: the JAX package's ``repro.models.lm`` in PyTorch, as far
-as the port has come.
+"""Model assembly: one composable decoder covering all ten architectures,
+the JAX package's ``repro.models.lm`` in PyTorch.
 
-Ported families:
+Families:
+  dense / moe / vlm — transformer decoder; per-layer flags drive
+        local:global attention (gemma3) and MoE (qwen3/mixtral); vlm
+        (qwen2-vl) splices precomputed patch embeddings + M-RoPE.
   hybrid            — zamba2: Mamba2 backbone + a SHARED attention block
         applied every `shared_attn_every` layers (own KV slot per
         application).
   ssm               — rwkv6: attention-free WKV blocks.
-
-The other families (dense / moe / vlm, encdec) raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+  encdec            — seamless: bidirectional encoder over frame embeddings
+        (stub frontend) + causal decoder w/ cross-attention.
 
 Interface (pure functions, the reference's names and parameter trees):
   param_specs(cfg)                      -> ParamSpec tree
@@ -16,7 +18,10 @@ Interface (pure functions, the reference's names and parameter trees):
   forward(params, batch, cfg=..., ...)  -> (logits, new cache)
 
 The reference scans over stacked layers (``jax.lax.scan``); here a Python
-loop indexes the stacked parameters layer by layer.
+loop indexes the stacked parameters layer by layer.  This is the serving
+path (scoring, prefill, decode): ``cfg.remat`` and ``cfg.scan_layers``
+change nothing in an inference forward and are ignored here; training
+maps ``remat`` to ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -26,28 +31,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel.sharding import MeshPolicy
+from ..parallel.sharding import MeshPolicy, shard_constraint
 from .config import ModelConfig
-from .layers import (apply_norm, attention_block, attn_specs, embed,
-                     embed_specs, lm_head, mlp_block, mlp_specs, norm_specs)
+from .layers import (_sdpa, apply_norm, apply_rope, attention_block,
+                     attn_specs, embed, embed_specs, lm_head, mlp_block,
+                     mlp_specs, norm_specs)
 from .mamba2 import mamba2_block, mamba2_specs
+from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_map
 from .rwkv6 import rwkv6_att, rwkv6_ffn, rwkv6_specs
-
-#: where each family not yet ported stands in ROADMAP.md
-_NOT_PORTED = {
-    "dense": "ROADMAP.md queue 1 item 4: the model stack's other families",
-    "moe": "ROADMAP.md queue 1 item 4: the model stack's other families",
-    "vlm": "ROADMAP.md queue 1 item 4: the model stack's other families",
-    "encdec": "ROADMAP.md queue 1 item 4: the model stack's other families",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED.get(cfg.family, _NOT_PORTED['dense'])}")
 
 
 def _stack(specs: Any, L: int) -> Any:
@@ -68,16 +60,47 @@ def layer_flags(cfg: ModelConfig) -> np.ndarray:
     return np.ones(L, bool)
 
 
+# ===========================================================================
+# decoder transformer (dense / moe / vlm)
+# ===========================================================================
+
+
+def _layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"ln1": norm_specs(cfg), "ln2": norm_specs(cfg),
+                         "attn": attn_specs(cfg)}
+    if cfg.is_moe:
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
+    return s
+
+
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_ported(cfg)
     if cfg.family == "ssm":
         return _rwkv_param_specs(cfg)
-    return _hybrid_param_specs(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_param_specs(cfg)
+    if cfg.family == "encdec":
+        return _encdec_param_specs(cfg)
+    s = {"embed": embed_specs(cfg),
+         "layers": _stack(_layer_specs(cfg), cfg.n_layers),
+         "ln_f": norm_specs(cfg)}
+    if cfg.family == "vlm":
+        s["patch_proj"] = {
+            "w": ParamSpec((cfg.d_model, cfg.d_model), ("embed", None))}
+    return s
+
+
+def _kv_specs(L: int, B: int, S_max: int, cfg: ModelConfig
+              ) -> Dict[str, ParamSpec]:
+    shape = (L, B, S_max, cfg.n_kv_heads, cfg.hd)
+    axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": ParamSpec(shape, axes, "zeros"),
+            "v": ParamSpec(shape, axes, "zeros")}
 
 
 def init_cache_specs(cfg: ModelConfig, B: int, S_max: int) -> Any:
     """KV-cache / state trees as ParamSpecs (zeros init)."""
-    _require_ported(cfg)
     d = cfg.d_model
     if cfg.family == "ssm":
         H, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
@@ -91,22 +114,109 @@ def init_cache_specs(cfg: ModelConfig, B: int, S_max: int) -> Any:
                 "shift_f": ParamSpec((L, B, 1, d),
                                      ("layers", "batch", None, "act_embed"),
                                      "zeros")}
-    d_in = cfg.ssm_expand * d
-    H = cfg.ssm_heads or max(1, d_in // 64)
-    hd = d_in // H
-    L, N, K = cfg.n_layers, cfg.ssm_state, cfg.ssm_conv
-    n_apps = max(1, L // max(1, cfg.shared_attn_every))
-    kv = cfg.n_kv_heads
-    return {"h": ParamSpec((L, B, H, hd, N),
-                           ("layers", "batch", None, None, "state"), "zeros"),
-            "conv": ParamSpec((L, B, K - 1, d_in + 2 * N),
-                              ("layers", "batch", None, None), "zeros"),
-            "shared_k": ParamSpec((n_apps, B, S_max, kv, cfg.hd),
-                                  (None, "batch", "kv_seq", "kv_heads", None),
-                                  "zeros"),
-            "shared_v": ParamSpec((n_apps, B, S_max, kv, cfg.hd),
-                                  (None, "batch", "kv_seq", "kv_heads", None),
-                                  "zeros")}
+    if cfg.family == "hybrid":
+        d_in = cfg.ssm_expand * d
+        H = cfg.ssm_heads or max(1, d_in // 64)
+        hd = d_in // H
+        L, N, K = cfg.n_layers, cfg.ssm_state, cfg.ssm_conv
+        n_apps = max(1, L // max(1, cfg.shared_attn_every))
+        kv = cfg.n_kv_heads
+        return {"h": ParamSpec((L, B, H, hd, N),
+                               ("layers", "batch", None, None, "state"),
+                               "zeros"),
+                "conv": ParamSpec((L, B, K - 1, d_in + 2 * N),
+                                  ("layers", "batch", None, None), "zeros"),
+                "shared_k": ParamSpec((n_apps, B, S_max, kv, cfg.hd),
+                                      (None, "batch", "kv_seq", "kv_heads",
+                                       None), "zeros"),
+                "shared_v": ParamSpec((n_apps, B, S_max, kv, cfg.hd),
+                                      (None, "batch", "kv_seq", "kv_heads",
+                                       None), "zeros")}
+    if cfg.family == "encdec":
+        return {**_kv_specs(cfg.n_dec_layers, B, S_max, cfg),
+                "enc_out": ParamSpec((B, cfg.n_patches, d),
+                                     ("batch", "frames", "act_embed"),
+                                     "zeros")}
+    return _kv_specs(cfg.n_layers, B, S_max, cfg)
+
+
+def _decoder_stack(params: Dict[str, Any], x: torch.Tensor, *,
+                   cfg: ModelConfig, policy: MeshPolicy, mesh: Any,
+                   positions: torch.Tensor,
+                   cache: Optional[Dict[str, torch.Tensor]] = None,
+                   cache_index: Any = None, use_kernels: bool = False
+                   ) -> Tuple[torch.Tensor, Any]:
+    # numpy bools, never the literal True: the reference hands the layer a
+    # traced array, so under the kernels its global layers keep the
+    # sliding window (ROADMAP.md queue 3), and so do these
+    flags = layer_flags(cfg)
+    new_k, new_v = [], []
+    for i in range(cfg.n_layers):
+        lp = tree_map(lambda a, i=i: a[i], params["layers"])
+        layer_cache = None if cache is None else \
+            {"k": cache["k"][i], "v": cache["v"][i]}
+        h = apply_norm(cfg, lp["ln1"], x)
+        a, new_cache = attention_block(
+            lp["attn"], h, cfg=cfg, positions=positions, policy=policy,
+            mesh=mesh, is_global=flags[i], cache=layer_cache,
+            cache_index=cache_index, use_kernels=use_kernels)
+        if cfg.parallel_block:
+            # command-r: x + attn(ln(x)) + mlp(ln(x)) with the same norm
+            m = mlp_block(lp["mlp"], h, cfg=cfg, policy=policy, mesh=mesh)
+            out = x + a + m
+        else:
+            h2 = x + a
+            hn = apply_norm(cfg, lp["ln2"], h2)
+            if cfg.is_moe:
+                m = moe_apply(lp["moe"], hn, cfg=cfg, policy=policy,
+                              mesh=mesh, use_kernels=use_kernels)
+            else:
+                m = mlp_block(lp["mlp"], hn, cfg=cfg, policy=policy,
+                              mesh=mesh)
+            out = h2 + m
+        x = shard_constraint(out, ("batch", "seq", "act_embed"), policy, mesh)
+        if cache is not None:
+            new_k.append(new_cache["k"])
+            new_v.append(new_cache["v"])
+    if cache is None:
+        return x, None
+    return x, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+
+
+def _decoder_forward(params, batch, *, cfg, policy, mesh, cache=None,
+                     cache_index=None, use_kernels=False):
+    tokens = batch["tokens"]
+    dtype = getattr(torch, cfg.dtype)
+    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        # splice precomputed patch embeddings (frontend stub) over the
+        # leading n_patches token positions
+        pe = batch["patch_embeds"].to(dtype) @ \
+            params["patch_proj"]["w"].to(dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    B, S = tokens.shape
+    dev = tokens.device
+    if cfg.mrope:
+        positions = batch.get("positions")
+        if positions is None:
+            pos1 = (torch.arange(S, device=dev)[None, :, None]
+                    if cache_index is None else
+                    torch.full((1, 1, 1), int(cache_index),
+                               dtype=torch.int32, device=dev))
+            positions = pos1.expand(B, S, 3)
+    else:
+        positions = (torch.arange(S, device=dev)[None, :]
+                     if cache_index is None else
+                     torch.full((B, S), int(cache_index), dtype=torch.int32,
+                                device=dev))
+        positions = positions.expand(B, S)
+    x, new_cache = _decoder_stack(params, x, cfg=cfg, policy=policy,
+                                  mesh=mesh, positions=positions,
+                                  cache=cache, cache_index=cache_index,
+                                  use_kernels=use_kernels)
+    x = apply_norm(cfg, params["ln_f"], x)
+    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
+    return logits, new_cache
 
 
 def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
@@ -118,20 +228,23 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
     """Returns (logits, new_cache). Train/prefill: cache_index None.
 
     Runs on the card unless ``device="cpu"`` is asked for; the parameters
-    (and the cache) must already be there, the tokens are moved there.
-    ``use_kernels`` is the reference's ``use_pallas``: prefill and scoring
-    run the flash-attention and SSD kernels (zamba2) or the WKV kernel
-    (rwkv6), their plain versions on the CPU."""
-    _require_ported(cfg)
+    (and the cache) must already be there, the batch's arrays (tokens,
+    vlm's ``patch_embeds`` and ``positions``, encdec's ``frames``) are
+    moved there.  ``use_kernels`` is the reference's ``use_pallas``:
+    prefill and scoring attention run the flash-attention kernel, MoE
+    experts the grouped-matmul kernel, zamba2's Mamba2 layers the SSD
+    kernel and rwkv6 the WKV kernel; their plain versions on the CPU."""
     dev = resolve_device(device)
     where = params["embed"]["tok"].device
     if where.type != dev.type:
         raise ValueError(f"forward on {dev}: the parameters are on {where}")
-    tokens = torch.as_tensor(batch["tokens"], device=where)
-    fwd = _rwkv_forward if cfg.family == "ssm" else _hybrid_forward
-    return fwd(params, {**batch, "tokens": tokens}, cfg=cfg,
-                           policy=policy, mesh=mesh, cache=cache,
-                           cache_index=cache_index, use_kernels=use_kernels)
+    batch = {k: v.to(where) if torch.is_tensor(v)
+             else torch.tensor(np.asarray(v), device=where)
+             for k, v in batch.items()}
+    fwd = {"ssm": _rwkv_forward, "hybrid": _hybrid_forward,
+           "encdec": _encdec_forward}.get(cfg.family, _decoder_forward)
+    return fwd(params, batch, cfg=cfg, policy=policy, mesh=mesh,
+               cache=cache, cache_index=cache_index, use_kernels=use_kernels)
 
 
 # ===========================================================================
@@ -263,6 +376,110 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
                      else c["shared_k"],
                      "shared_v": torch.stack(new_sv) if new_sv
                      else c["shared_v"]}
+    x = apply_norm(cfg, params["ln_f"], x)
+    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
+    return logits, new_cache
+
+
+# ===========================================================================
+# seamless (encdec family)
+# ===========================================================================
+
+
+def _encdec_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    enc_layer = {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
+                 "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+    dec_layer = {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
+                 "ln_x": norm_specs(cfg), "xattn": attn_specs(cfg),
+                 "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+    return {"embed": embed_specs(cfg),
+            "enc": _stack(enc_layer, cfg.n_enc_layers),
+            "dec": _stack(dec_layer, cfg.n_dec_layers),
+            "ln_enc": norm_specs(cfg), "ln_f": norm_specs(cfg)}
+
+
+def _cross_attention(p, x, enc_out, *, cfg, policy, mesh):
+    """Decoder queries over the encoder's output, unmasked (plain
+    ``_sdpa``, as the reference)."""
+    B, Sq, d = x.shape
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
+    mask = torch.ones((B, Sq, enc_out.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, k, v, mask, None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def _encoder_layer(lp, x, pos, *, cfg, policy, mesh):
+    """Bidirectional self-attention with RoPE (plain ``_sdpa``), then the
+    MLP; the reference's encoder layer."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    B, S, _ = h.shape
+    dt = h.dtype
+    q = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wv"].to(dt))
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    a = _sdpa(q, k, v, torch.ones((B, S, S), dtype=torch.bool,
+                                  device=h.device), None)
+    a = torch.einsum("bshk,hkd->bsd", a, lp["attn"]["wo"].to(dt))
+    x2 = x + a
+    h2 = apply_norm(cfg, lp["ln2"], x2)
+    return x2 + mlp_block(lp["mlp"], h2, cfg=cfg, policy=policy, mesh=mesh)
+
+
+def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
+                    cache_index=None, use_kernels=False):
+    dtype = getattr(torch, cfg.dtype)
+    decode = cache_index is not None
+    # ---------------- encoder (skipped during decode: enc_out cached) ----
+    if not decode:
+        enc_out = batch["frames"].to(dtype)             # stub frontend
+        Bf, Sf = enc_out.shape[:2]
+        pos_e = torch.arange(Sf, device=enc_out.device)[None, :].expand(
+            Bf, Sf)
+        for i in range(cfg.n_enc_layers):
+            lp = tree_map(lambda a, i=i: a[i], params["enc"])
+            enc_out = _encoder_layer(lp, enc_out, pos_e, cfg=cfg,
+                                     policy=policy, mesh=mesh)
+        enc_out = apply_norm(cfg, params["ln_enc"], enc_out)
+    else:
+        enc_out = cache["enc_out"].to(dtype)
+    # ---------------- decoder -------------------------------------------
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = (torch.arange(S, device=dev)[None, :] if not decode
+                 else torch.full((B, S), int(cache_index),
+                                 dtype=torch.int32, device=dev))
+    positions = positions.expand(B, S)
+    new_k, new_v = [], []
+    for i in range(cfg.n_dec_layers):
+        lp = tree_map(lambda a, i=i: a[i], params["dec"])
+        layer_cache = None if cache is None else \
+            {"k": cache["k"][i], "v": cache["v"][i]}
+        h = apply_norm(cfg, lp["ln1"], x)
+        a, new_cache_l = attention_block(
+            lp["attn"], h, cfg=cfg, positions=positions, policy=policy,
+            mesh=mesh, is_global=True, cache=layer_cache,
+            cache_index=cache_index, use_kernels=use_kernels)
+        x2 = x + a
+        hx = apply_norm(cfg, lp["ln_x"], x2)
+        x3 = x2 + _cross_attention(lp["xattn"], hx, enc_out, cfg=cfg,
+                                   policy=policy, mesh=mesh)
+        h2 = apply_norm(cfg, lp["ln2"], x3)
+        x = x3 + mlp_block(lp["mlp"], h2, cfg=cfg, policy=policy, mesh=mesh)
+        if cache is not None:
+            new_k.append(new_cache_l["k"])
+            new_v.append(new_cache_l["v"])
+    new_cache = None
+    if cache is not None:
+        new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v),
+                     "enc_out": enc_out.to(cache["enc_out"].dtype)}
     x = apply_norm(cfg, params["ln_f"], x)
     logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
     return logits, new_cache

@@ -6,7 +6,7 @@ The models annotate every activation with logical axis names
 card there is no mesh: :func:`shard_constraint` returns its input
 unchanged when ``mesh is None``.  Sharding over several cards
 (``torch.distributed`` device meshes) is not ported yet: a mesh raises
-``NotImplementedError`` naming ROADMAP.md queue 1 item 4.
+``NotImplementedError`` naming ROADMAP.md queue 1 item 3.
 """
 from __future__ import annotations
 
@@ -35,5 +35,5 @@ def shard_constraint(x: torch.Tensor, axes: Sequence[Optional[str]],
     if mesh is not None:
         raise NotImplementedError(
             "sharding over a device mesh is not ported yet (ROADMAP.md "
-            "queue 1 item 4, multi-device)")
+            "queue 1 item 3, multi-device)")
     return x

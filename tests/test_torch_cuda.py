@@ -945,3 +945,74 @@ def test_tensor_core_kernels_as_accurate_as_plain(cuda):
                                               float(ep.mean()))
         assert ek.max() <= 128 * ep.max(), (name, float(ek.max()),
                                             float(ep.max()))
+
+
+# ---------------------------------------------------------------------------
+# the decoder families: qwen3-moe and gemma3 on the card against the CPU,
+# and gmm at the dense MoE route's shape
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "gemma3_12b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_smoke_forward_on_card_matches_cpu(cuda, arch, dtype):
+    """The smoke model's scoring forward with the kernels on the card (one
+    flash launch a layer, three gmm launches a MoE layer; S = 40 is past
+    gemma3's window of 16) against the same parameters' plain path on the
+    CPU: fp32 within 1e-3; bf16 within 1.5x the host's own bf16-vs-fp32
+    gap plus 1e-3 (relative L2, chip_smoke.py's noise rule)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward, init_params, param_specs
+    from repro_torch.models.params import tree_map
+    cfg = get_smoke_config(arch).derive(dtype=dtype)
+    host = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                       device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)
+                                            ).astype(np.int32)
+    reset_launch_counts()
+    got, _ = forward(card, {"tokens": tok}, cfg=cfg, use_kernels=True,
+                     device=cuda)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["gmm"] == (3 * cfg.n_layers if cfg.is_moe else 0)
+    want, _ = forward(host, {"tokens": tok}, cfg=cfg, use_kernels=True,
+                      device="cpu")
+    got = got.cpu()
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    if dtype == "float32":
+        _close(got, want, 1e-3, 1e-3)
+        return
+    fp32, _ = forward(host, {"tokens": tok}, cfg=cfg.derive(dtype="float32"),
+                      device="cpu")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    assert rel(got, want) <= 1.5 * rel(want, fp32) + 1e-3
+
+
+def test_gmm_at_the_dense_moe_shape_with_ragged_tokens(cuda):
+    """qwen3-moe's dense route at T = 1,000 tokens: every token through
+    all 128 experts, so C = 1,000 rows, not a multiple of the kernel's
+    128-row tiles; the up projection (D = 2048 -> F = 768) and the down
+    projection (768 -> 2048), both on the TMA route.  The weights are
+    scaled by 1/sqrt(fan_in), as a model's are, so the products' RMS is
+    about 1: atol is 2e-2 of the plain output's RMS (sqrt(D) in the tests
+    above is that RMS for products of unit normals), rtol 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(1000)
+    bf = torch.bfloat16
+    E, T, D, F = 128, 1000, 2048, 768
+    x = torch.randn(1, T, D, generator=g, device=cuda).to(bf).expand(
+        E, T, D).contiguous()
+    wi = (torch.randn(E, D, F, generator=g, device=cuda) * D ** -0.5).to(bf)
+    wo = (torch.randn(E, F, D, generator=g, device=cuda) * F ** -0.5).to(bf)
+    h = gmm_ops.gmm(x, wi)
+    for a, w in ((x, wi), (torch.nn.functional.silu(h), wo)):
+        reset_launch_counts()
+        y = gmm_ops.gmm(a, w)
+        torch.cuda.synchronize()
+        assert launch_counts()["gmm"] == 1 and gmm_kernel.LAST_ROUTE == "tma"
+        assert y.shape == (E, T, w.shape[2]) and y.dtype == bf
+        want = gmm_ref.gmm_ref(a, w)
+        _close(y, want, FLASH_ATOL[bf] * float(
+            want.float().pow(2).mean().sqrt()), 2e-2)

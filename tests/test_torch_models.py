@@ -431,20 +431,51 @@ def test_init_params_is_seeded_and_shaped():
     assert torch.all(a["ln_f"]["scale"] == 0)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if a not in ("zamba2_2_7b", "rwkv6_3b")])
-def test_unported_families_raise(arch):
+def _arch_batch(cfg, B, S, rng):
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        b["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        b["positions"] = np.broadcast_to(
+            np.arange(S, dtype=np.int32)[None, :, None], (B, S, 3)).copy()
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return b
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_forward_shapes_and_finite(arch):
+    """Every smoke configuration through the port's forward on the CPU
+    (the kernels' plain versions): scoring, a cache-filling prefill and
+    one decode step give finite logits of the expected shapes, and the
+    cache keeps its specs' shapes."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_cache_specs(cfg, 1, 8)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         device=CPU)
+    B, S, S_max = 2, 16, 24
+    batch = _arch_batch(cfg, B, S, np.random.default_rng(0))
+    logits, none = forward(params, batch, cfg=cfg, device=CPU,
+                           use_kernels=True)
+    assert none is None and logits.shape == (B, S, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    specs = init_cache_specs(cfg, B, S_max)
+    cache = {k: torch.zeros(s.shape, dtype=torch.bfloat16 if len(s.shape)
+                            >= 3 else torch.float32)
+             for k, s in specs.items()}          # the engine's dtypes
+    _, cache = forward(params, batch, cfg=cfg, device=CPU, cache=cache)
+    step, cache = forward(params, {"tokens": batch["tokens"][:, :1]},
+                          cfg=cfg, device=CPU, cache=cache, cache_index=S)
+    assert step.shape == (B, 1, cfg.vocab_size)
+    assert torch.isfinite(step).all()
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: s.shape for k, s in specs.items()}
 
 
 def test_shard_constraint_is_the_identity_on_one_card():
     x = torch.ones(2, 3)
     assert shard_constraint(x, ("batch", "seq"), TP) is x
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         shard_constraint(x, ("batch", "seq"), TP, mesh=object())
 
 
