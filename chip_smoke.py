@@ -6,9 +6,10 @@
 
 Drives the ported paths, the metadata request path (phases 2-4), the
 zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
-(phases 8-10), the metadata path under failover (phase 11), and the
-decoder families: qwen3-moe (phase 12), gemma3, qwen2-vl, seamless and
-mixtral (phase 13).  Phases,
+(phases 8-10), the metadata path under failover (phase 11), the decoder
+families: qwen3-moe (phase 12), gemma3, qwen2-vl, seamless and mixtral
+(phase 13), and training: qwen1.5-4B (phase 14), the other kernels'
+training paths and the trainer (phase 15).  Phases,
 each printing its results on lines of its own; any failure raises and the
 script exits non-zero:
 
@@ -177,10 +178,47 @@ script exits non-zero:
     layer's too (the reference's fault, kept; ROADMAP.md queue 3), and at
     S = 1024 (= the window, where the fault cannot show) its kernel path
     agrees with its plain path within noise.
+14. qwen1.5-4B training at full width (d=2560, 20 heads of 128, d_ff
+    6,912, vocab 151,936) and TRAIN_LAYERS = 40 layers, ``remat="full"``:
+    3,950,369,280 fp32 parameters from a seeded ``torch.Generator`` (63.2
+    GB with their gradients and AdamW's moments), bf16 compute.  Three
+    ``make_train_step(..., use_kernels=True)`` steps of AdamW (lr 1e-4,
+    no warmup) on one ``synthetic_batch(1, 2048)``: the launch counts are
+    set to 0 before each step and read after, exactly 80 flash launches a
+    step (40 in the forward, 40 in the backward's recompute) and no other
+    kernel; the first step holds every launch against its plain version;
+    every loss finite, the third no more than the first plus 0.5
+    (``tests/test_arch_smoke.py``'s rule), the parameters finite; ms per
+    warm step, training tokens/s, the peak device bytes; one more step
+    under ``torch.profiler`` split by where each device event was
+    launched (``train_split``: flash kernels, the attention's plain
+    backward, the LM head and loss, the optimizer, the rest).  The first
+    flash call replayed for the JSON line.  At 8 layers, loss and
+    gradients with ``remat="none"`` and ``"full"``: equal (bitwise where
+    the card's kernels are deterministic, else within 1e-6 of each leaf's
+    largest element), 8 against 16 flash launches, both peaks.  At 2
+    layers (B=1, S=128) the card's kernel path against the host's plain
+    path, loss and every gradient leaf by the noise rule, and
+    ``adamw_update`` on the card against the host on identical gradients
+    (atol 1e-6).
+15. Full width, one model at a time (TRAIN_CUTS): zamba2_2_7b (12 of 54
+    layers: two shared-attention applications), rwkv6_3b (8 of 32) and
+    qwen3_moe_30b_a3b (2 of 48, the dense MoE route), at B=1, S=1024:
+    the loss and gradients with the kernels (exact launches: ssd one a
+    Mamba2 layer, flash one a shared-attention application or decoder
+    layer, wkv6 one a layer, gmm three a MoE layer; none in the backward,
+    which differentiates the plain versions) against the plain path's by
+    the noise rule; a training step with every launch held against its
+    plain version, a finite loss and finite parameters.  Then the trainer
+    as users start it, in a subprocess on the card: ``python -m
+    repro_torch.launch.train --arch qwen1_5_4b --smoke --steps 12
+    --ckpt-every 5``, then ``--resume --steps 14``: it must resume from
+    step 10, its ledger end at step 13, both exit 0.
 
-The line before the last is the kernels' JSON (nine kernels; flash and
-gmm once more for the qwen3-moe path; each row names its path), the last
-line the device JSON.  Without a CUDA device, or outside the repository,
+The line third from the end is the training JSON (phases 14-15), the
+line before the last the kernels' JSON (nine kernels; flash and gmm once
+more for the qwen3-moe path, flash once more for the training path; each
+row names its path), the last line the device JSON.  Without a CUDA device, or outside the repository,
 it exits non-zero and prints no result.
 
 ``--meta-times`` runs none of the phases either: it holds the four
@@ -1660,7 +1698,11 @@ def exact_launches(what: str, want: dict) -> dict:
     """Every kernel's launches since the last reset, held to ``want``
     (none for a kernel it does not name); returns those that launched."""
     from repro_torch.kernels import launch_counts
-    got = launch_counts()
+    return held_launches(what, launch_counts(), want)
+
+
+def held_launches(what: str, got: dict, want: dict) -> dict:
+    """A launch count ``got`` held to ``want``, as ``exact_launches``."""
     full = {k: want.get(k, 0) for k in got}
     if got != full:
         raise AssertionError(f"{what} launched {got}, want {full}")
@@ -2300,6 +2342,472 @@ def phase_families(seed: int, dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 14 and 15: training
+# ---------------------------------------------------------------------------
+
+#: phase 14: qwen1.5-4B trained at full width and TRAIN_LAYERS of its 40
+#: layers under remat="full" (3,950,369,280 fp32 parameters; with their
+#: gradients and AdamW's two moments 63.2 GB), TRAIN_STEPS steps on one
+#: batch of TRAIN_BS (B, S) with TRAIN_OPT; the remat comparison's depth;
+#: the host check's depth and (B, S)
+TRAIN_LAYERS = 40
+TRAIN_BS = (1, 2048)
+TRAIN_STEPS = 3
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=0, total_steps=3)
+REMAT_LAYERS = 8
+TRAIN_HOST_LAYERS, TRAIN_HOST_BS = 2, (1, 128)
+#: AdamW on the card against the host on identical gradients
+ADAMW_ATOL = 1e-6
+#: phase 15: the other kernels' training paths at full width, one model
+#: at a time, each this deep (zamba2: two shared-attention applications),
+#: one step at (B, S) TRAIN_CUT_BS; then the trainer as users start it:
+#: TRAINER_RUNS[0] steps checkpointing every TRAINER_RUNS[1], then resumed
+#: up to TRAINER_RUNS[2]
+TRAIN_CUTS = (("zamba2_2_7b", 12), ("rwkv6_3b", 8),
+              ("qwen3_moe_30b_a3b", 2))
+TRAIN_CUT_BS = (1, 1024)
+TRAINER_RUNS = (12, 5, 14)
+
+
+def leaf_paths(tree, prefix=""):
+    """The key paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def loss_and_grads(cfg, params, batch, use_kernels: bool, dev) -> tuple:
+    """(loss, gradients in ``tree_leaves`` order, the launches of the
+    forward, the launches of forward and backward)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import loss_fn
+    from repro_torch.models.params import tree_leaves, tree_map
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    diff = tree_map(lambda _: next(it), params)
+    reset_launch_counts()
+    loss = loss_fn(diff, batch, cfg=cfg, use_kernels=use_kernels,
+                   device=dev)
+    fwd = launch_counts()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return loss.detach(), list(grads), fwd, launch_counts()
+
+
+def grads_within_noise(tag: str, names, got, plain, plain_fp32) -> str:
+    """Every gradient leaf by the noise rule; returns the line naming the
+    worst leaf (largest error over its allowance)."""
+    worst = (-1.0, "")
+    for name, g, p, f in zip(names, got, plain, plain_fp32):
+        line = within_noise(f"grad {name}", g, p, f)
+        err, noise = rel_l2(g, p), rel_l2(p, f)
+        worst = max(worst, (err / (NOISE_FACTOR * noise + NOISE_FLOOR),
+                            line))
+    return (f"{tag}: {len(names)} gradient leaves within noise; worst "
+            f"(error over allowance {worst[0]:.4f}) {worst[1]}")
+
+
+def all_finite(tree) -> bool:
+    from repro_torch.models.params import tree_leaves
+    return all(bool(torch.isfinite(t.float()).all())
+               for t in tree_leaves(tree))
+
+
+#: the parts of a train step's device time (``train_split``)
+SPLIT_PARTS = ("flash kernels (forward and remat recompute)",
+               "attention backward (plain version: recompute and autograd)",
+               "LM head and loss (forward and backward)",
+               "optimizer (adamw_update)",
+               "layers' other work (projections, MLP, norms, RoPE, casts; "
+               "their recompute and backward; gradient stacking)")
+
+
+def train_split(fn, wall_s: float) -> dict:
+    """One call of ``fn`` (a train step) under ``torch.profiler``: the
+    device time of its kernels, copies and fills in SPLIT_PARTS, each
+    device event placed by where its launch was made (the launch's host
+    thread and time, joined through the trace's correlation ids): inside
+    ``adamw_update``; inside the autograd node of the flash Function's
+    backward; on the forward's thread from the LM head on, or on the
+    backward's thread before its first flash launch (the LM head and the
+    loss); a flash kernel by its name.  Also the busy time against
+    ``wall_s`` (a warm step's wall time, not profiled) and the largest
+    kernels."""
+    import repro_torch.models.lm as lm
+    import repro_torch.train.step as step_mod
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real_update, real_head = step_mod.adamw_update, lm.lm_head
+
+    def update(*a, **kw):
+        with record_function("adamw_update"):
+            return real_update(*a, **kw)
+
+    def head(*a, **kw):
+        with record_function("lm_head"):
+            return real_head(*a, **kw)
+
+    step_mod.adamw_update, lm.lm_head = update, head
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        step_mod.adamw_update, lm.lm_head = real_update, real_head
+    path = ROOT / "build" / "train_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    path.unlink()
+    launch, device, ranges = {}, [], {}
+    for e in events:
+        cat, args = e.get("cat"), e.get("args", {})
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = (e["tid"], e["ts"])
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((e["name"], e["dur"], args.get("correlation")))
+        elif cat in ("cpu_op", "user_annotation") and e.get("ph") == "X":
+            name = e["name"]
+            key = ("update" if name == "adamw_update" else "head"
+                   if name == "lm_head" else "attn_bwd"
+                   if name.startswith("autograd::engine::evaluate_function")
+                   and "_FlashAttentionBackward" in name else None)
+            if key:
+                ranges.setdefault(key, []).append(
+                    (e["tid"], e["ts"], e["ts"] + e["dur"]))
+
+    def inside(key, at):
+        return any(t == at[0] and a <= at[1] <= b
+                   for t, a, b in ranges.get(key, ()))
+
+    head_at = min(ranges["head"], key=lambda r: r[1])
+    flash_at = sorted(launch[c] for n, _, c in device
+                      if "flash" in n.lower() and c in launch)
+    bwd_tid = ranges["attn_bwd"][0][0] if "attn_bwd" in ranges else None
+    first_bwd_flash = min((ts for t, ts in flash_at if t == bwd_tid),
+                          default=float("inf"))
+    parts = {p: [0.0, 0] for p in SPLIT_PARTS}
+    by_name = {}
+    for name, dur, corr in device:
+        at = launch.get(corr, (None, 0.0))
+        if "flash" in name.lower():
+            part = SPLIT_PARTS[0]
+        elif inside("update", at):
+            part = SPLIT_PARTS[3]
+        elif inside("attn_bwd", at):
+            part = SPLIT_PARTS[1]
+        elif (at[0] == head_at[0] and at[1] >= head_at[1]) or (
+                at[0] == bwd_tid and at[1] < first_bwd_flash):
+            part = SPLIT_PARTS[2]
+        else:
+            part = SPLIT_PARTS[4]
+        parts[part][0] += dur
+        parts[part][1] += 1
+        t, k = by_name.get(name[:60], (0.0, 0))
+        by_name[name[:60]] = (t + dur, k + 1)
+    busy = sum(t for t, _ in parts.values())
+    return {"busy_ms": busy / 1e3, "wall_ms": wall_s * 1e3,
+            "idle_share": 1 - busy / 1e3 / (wall_s * 1e3),
+            "ranges": {k: len(v) for k, v in ranges.items()},
+            "parts": {p: {"ms": t / 1e3, "share": t / max(busy, 1e-30),
+                          "events": n}
+                      for p, (t, n) in parts.items()},
+            "largest": [(n, t / 1e3, k) for n, (t, k) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:8]]}
+
+
+def phase_train(seed: int, dev) -> tuple:
+    """Phase 14: qwen1.5-4B training at full width on the card.  Returns
+    the flash row of the JSON line (launches from a train step, this path;
+    times and errors on its first inputs) and the phase's figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import count_params, param_specs
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import MeshPolicy
+    from repro_torch.train import (OptConfig, adamw_init, adamw_update,
+                                   make_train_step)
+    full = get_config("qwen1_5_4b")
+    cfg = full.derive(n_layers=TRAIN_LAYERS, remat="full")
+    L = cfg.n_layers
+    B, S = TRAIN_BS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: model_params(cfg, seed, dev))
+    opt_state = adamw_init(params)
+    n = count_params(param_specs(cfg))
+    log(f"phase14 qwen1_5_4b training: {L} of {full.n_layers} layers, "
+        f"remat={cfg.remat}, {n} params fp32 on the card (params, grads, "
+        f"mu, nu: {16 * n} bytes); d={cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; B,S={TRAIN_BS}"
+        f", {TRAIN_STEPS} steps of AdamW {TRAIN_OPT}; init_s={t_init:.3f}")
+    batch = synthetic_batch(B, S, cfg.vocab_size, step=0, seed=seed,
+                            device=dev)
+    step = make_train_step(cfg, MeshPolicy(), None,
+                           opt=OptConfig(**TRAIN_OPT), use_kernels=True,
+                           device=dev)
+    want = {"flash_attention": 2 * L}
+    losses, walls, out, rec = [], [], {}, None
+    for i in range(TRAIN_STEPS):
+        reset_launch_counts()
+        if i == 0:
+            # every launch, forward and remat recompute, against its
+            # plain version on its own inputs
+            t0 = time.perf_counter()
+            line = checked_run(lambda: out.update(
+                r=step(params, opt_state, batch)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"phase14 step 0 (checked), {line}")
+        elif i == 1:
+            rec = KernelWatch()
+            try:
+                out["r"], wall = timed(lambda: step(params, opt_state,
+                                                    batch))
+            finally:
+                rec.restore()
+        else:
+            out["r"], wall = timed(lambda: step(params, opt_state, batch))
+        launches = exact_launches(f"train step {i}", want)
+        losses.append(float(out["r"][2]))
+        walls.append(wall)
+        log(f"phase14 step {i}: loss={losses[-1]:.6f} wall_s={wall:.4f} "
+            f"launches={json.dumps(launches)}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if not all(np.isfinite(losses)) or losses[-1] > losses[0] + 0.5:
+        raise AssertionError(f"phase14 losses {losses}")
+    if not all_finite(params):
+        raise AssertionError("phase14: parameters not finite")
+    warm = walls[-1]
+    log(f"phase14 train step: ms_per_warm_step={warm * 1e3:.3f} "
+        f"training_tokens_per_s={B * S / warm:.1f} losses={losses} "
+        f"peak_device_bytes={peak} of {total}, free at peak "
+        f"{total - peak}; parameters finite")
+    split = train_split(lambda: step(params, opt_state, batch), warm)
+    log("phase14 device split of one warm step: busy_ms="
+        f"{split['busy_ms']:.3f} of wall_ms={split['wall_ms']:.3f} (idle "
+        f"share {split['idle_share']:.4f}); ranges found "
+        f"{json.dumps(split['ranges'])}; " + "; ".join(
+            f"{p} {v['ms']:.3f} ms ({v['share']:.4f}, {v['events']} events)"
+            for p, v in split["parts"].items()) + "; largest: " + "; ".join(
+            f"{nm} {t:.3f} ms x{k}" for nm, t, k in split["largest"]))
+    row = kernel_row("flash_attention", rec, launches, "phase14 main-path",
+                     f"qwen1_5_4b train step, {L} layers, remat full "
+                     f"(phase 14)")
+    rec.calls.clear()
+    figures = {"layers": L, "params": n, "losses": losses,
+               "step_walls_s": walls, "ms_per_warm_step": warm * 1e3,
+               "training_tokens_per_s": B * S / warm, "peak_device_bytes":
+               peak, "free_at_peak_bytes": total - peak,
+               "flash_launches_per_step": launches["flash_attention"],
+               "split": {p: v["ms"] for p, v in split["parts"].items()},
+               "busy_ms": split["busy_ms"],
+               "idle_share": split["idle_share"]}
+    del params, opt_state, step, out
+    torch.cuda.empty_cache()
+
+    # remat: equal loss and gradients, twice the flash launches
+    c8 = full.derive(n_layers=REMAT_LAYERS)
+    p8 = model_params(c8, seed, dev)
+    names = leaf_paths(p8)
+    res = {}
+    for remat in ("none", "full"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (loss, grads, _, got), wall = timed(lambda: loss_and_grads(
+            c8.derive(remat=remat), p8, batch, True, dev))
+        held_launches(f"remat={remat}", got, {
+            "flash_attention": REMAT_LAYERS * (2 if remat == "full" else 1)})
+        # the run's own peak, above what was held before it
+        res[remat] = (loss, grads, got["flash_attention"],
+                      torch.cuda.max_memory_allocated() - base, wall)
+    (l0, g0, n0, pk0, w0), (l1, g1, n1, pk1, w1) = res["none"], res["full"]
+    bitwise = [bool(torch.equal(a, b)) for a, b in zip(g1, g0)]
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(g1, g0))
+    if not torch.equal(l0, l1) and abs(float(l1 / l0) - 1) > 1e-6 \
+            or worst > 1e-6:
+        raise AssertionError(f"remat changed the loss ({float(l0)} vs "
+                             f"{float(l1)}) or a gradient ({worst})")
+    log(f"phase14 remat at {REMAT_LAYERS} layers, loss and gradients "
+        f"(B,S={TRAIN_BS}): none vs full: loss bitwise "
+        f"{bool(torch.equal(l0, l1))} ({float(l0):.6f}), gradient leaves "
+        f"bitwise equal {sum(bitwise)} of {len(bitwise)}, largest "
+        f"difference over the leaf's largest element {worst:.3g}; flash "
+        f"launches {n0} vs {n1}; peak device bytes above the parameters "
+        f"{pk0} vs {pk1}; wall_s "
+        f"{w0:.4f} vs {w1:.4f}")
+    figures["remat"] = {"layers": REMAT_LAYERS, "loss_bitwise":
+                        bool(torch.equal(l0, l1)), "bitwise_leaves":
+                        sum(bitwise), "leaves": len(bitwise),
+                        "max_rel_diff": worst, "flash_launches": [n0, n1],
+                        "peak_bytes_above_params": [pk0, pk1]}
+    del res, g0, g1
+
+    # the card's kernel path against the host's plain path, 2 layers
+    c2 = full.derive(n_layers=TRAIN_HOST_LAYERS)
+    p2 = dict(p8, layers=tree_map(lambda a: a[:TRAIN_HOST_LAYERS],
+                                  p8["layers"]))
+    host = tree_map(lambda t: t.cpu(), p2)
+    Bh, Sh = TRAIN_HOST_BS
+    hb = synthetic_batch(Bh, Sh, c2.vocab_size, step=1, seed=seed,
+                         device="cpu")
+    (lk, gk, _, got), t_c = timed(lambda: loss_and_grads(
+        c2, p2, {k: v.to(dev) for k, v in hb.items()}, True, dev))
+    held_launches("host check, card", got,
+                  {"flash_attention": TRAIN_HOST_LAYERS})
+    t0 = time.perf_counter()
+    lp, gp, _, _ = loss_and_grads(c2, host, hb, False, "cpu")
+    t_h = time.perf_counter() - t0
+    lf, gf, _, _ = loss_and_grads(c2.derive(dtype="float32"), host, hb,
+                                  False, "cpu")
+    log(f"phase14 host check {TRAIN_HOST_LAYERS} layers B,S="
+        f"{TRAIN_HOST_BS}: card (kernels) wall_s={t_c:.4f}, host (plain) "
+        f"wall_s={t_h:.4f}; " + within_noise("loss", lk, lp, lf))
+    log("phase14 " + grads_within_noise("host check", leaf_paths(p2), gk,
+                                        gp, gf))
+    # AdamW on identical gradients (the host's fp32 ones) on both
+    opt = OptConfig(**TRAIN_OPT)
+    cp = tree_map(torch.clone, p2)
+    hp = tree_map(torch.clone, host)
+    cs, hs = adamw_init(cp), adamw_init(hp)
+    it_c, it_h = iter([g.to(dev) for g in gf]), iter(gf)
+    adamw_update(opt, cp, tree_map(lambda _: next(it_c), cp), cs)
+    adamw_update(opt, hp, tree_map(lambda _: next(it_h), hp), hs)
+    err = max(float((a.cpu() - b).abs().max()) for x, y in (
+        (cp, hp), (cs["mu"], hs["mu"]), (cs["nu"], hs["nu"]))
+        for a, b in zip(tree_leaves(x), tree_leaves(y)))
+    if err > ADAMW_ATOL:
+        raise AssertionError(f"adamw_update card vs host: {err}")
+    log(f"phase14 adamw_update card vs host on identical gradients: "
+        f"params, mu and nu max_abs_err={err:.3g} (atol {ADAMW_ATOL})")
+    figures["host_adamw_max_abs_err"] = err
+    del p8, p2, cp, cs, gk
+    torch.cuda.empty_cache()
+    return row, figures
+
+
+def run_trainer(*argv) -> str:
+    """``python -m repro_torch.launch.train`` in a subprocess, as users
+    start it (on the card, its default); returns its standard output."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get(
+            "PYTHONPATH") else []))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *argv], capture_output=True, text=True, env=env,
+                       cwd=ROOT, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"trainer {argv} exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return r.stdout
+
+
+def phase_train_paths(seed: int, dev) -> dict:
+    """Phase 15: zamba2, rwkv6 and qwen3-moe training steps at full width
+    (TRAIN_CUTS), then the trainer, started, checkpointed and resumed."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import count_params, param_specs
+    from repro_torch.parallel.sharding import MeshPolicy
+    from repro_torch.train import OptConfig, adamw_init, make_train_step
+    figures = {}
+    B, S = TRAIN_CUT_BS
+    for arch, layers in TRAIN_CUTS:
+        full = get_config(arch)
+        cfg = full.derive(n_layers=layers)
+        tag = f"phase15 {arch}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model_params(cfg, seed, dev)
+        want = {"ssd": layers if cfg.family == "hybrid" else 0,
+                "wkv6": layers if cfg.family == "ssm" else 0,
+                "gmm": 3 * layers if cfg.is_moe else 0,
+                "flash_attention": max(1, layers // cfg.shared_attn_every)
+                if cfg.family == "hybrid" else 0 if cfg.family == "ssm"
+                else layers}
+        log(f"{tag}: {layers} of {full.n_layers} layers, "
+            f"{count_params(param_specs(cfg))} params fp32 on the card, "
+            f"B,S={TRAIN_CUT_BS}")
+        batch = synthetic_batch(B, S, cfg.vocab_size, step=0, seed=seed,
+                                device=dev)
+        (lk, gk, fwd, got), t_k = timed(lambda: loss_and_grads(
+            cfg, params, batch, True, dev))
+        if got != fwd:
+            raise AssertionError(f"{arch}: the backward launched kernels: "
+                                 f"{got} after the forward's {fwd}")
+        launches = held_launches(f"{arch} loss and gradients", got, want)
+        lp, gp, _, g_p = loss_and_grads(cfg, params, batch, False, dev)
+        lf, gf, _, g_f = loss_and_grads(cfg.derive(dtype="float32"), params,
+                                        batch, False, dev)
+        held_launches(f"{arch} plain paths", {k: g_p[k] + g_f[k]
+                                              for k in g_p}, {})
+        log(f"{tag} loss and gradients with the kernels: wall_s={t_k:.4f} "
+            f"launches={json.dumps(launches)}, none in the backward; "
+            + within_noise("loss, kernels vs plain", lk, lp, lf))
+        log(tag + " " + grads_within_noise("kernels vs plain",
+                                           leaf_paths(params), gk, gp, gf))
+        del gk, gp, gf
+        torch.cuda.empty_cache()
+        opt_state = adamw_init(params)
+        step = make_train_step(cfg, MeshPolicy(), None,
+                               opt=OptConfig(**TRAIN_OPT), use_kernels=True,
+                               device=dev)
+        out = {}
+        reset_launch_counts()
+        line = checked_run(lambda: out.update(r=step(params, opt_state,
+                                                      batch)))
+        exact_launches(f"{arch} train step", want)
+        loss = float(out["r"][2])
+        if not np.isfinite(loss) or not all_finite(params):
+            raise AssertionError(f"{arch} train step: loss {loss}")
+        log(f"{tag} train step: loss={loss:.6f} (before it "
+            f"{float(lk):.6f}), parameters finite; {line}; "
+            f"peak_device_bytes={torch.cuda.max_memory_allocated()}")
+        figures[arch] = {"layers": layers, "launches": launches,
+                         "loss": loss}
+        del params, opt_state, step, out, batch
+        torch.cuda.empty_cache()
+
+    # the trainer, as users start it, then resumed
+    steps, every, more = TRAINER_RUNS
+    with tempfile.TemporaryDirectory() as d:
+        common = ("--arch", "qwen1_5_4b", "--smoke", "--ckpt-every",
+                  str(every), "--ckpt-dir", d)
+        t0 = time.perf_counter()
+        first = run_trainer("--steps", str(steps), *common)
+        t1 = time.perf_counter()
+        second = run_trainer("--resume", "--steps", str(more), *common)
+        t2 = time.perf_counter()
+    last = (steps // every) * every
+    if f"checkpointed step {last}" not in first \
+            or not first.strip().endswith(
+                f"ledger last step = {steps - 1}"):
+        raise AssertionError(f"trainer: {first[-600:]}")
+    if f"resumed from step {last}" not in second \
+            or not second.strip().endswith(f"ledger last step = {more - 1}"):
+        raise AssertionError(f"trainer resumed: {second[-600:]}")
+    log(f"phase15 trainer: {steps} steps checkpointing every {every} "
+        f"(wall_s={t1 - t0:.3f}): {first.strip().splitlines()[-1]!r}; "
+        f"--resume --steps {more} (wall_s={t2 - t1:.3f}): resumed from "
+        f"step {last}, {second.strip().splitlines()[-1]!r}")
+    figures["trainer"] = {"resumed_from": last, "ledger_last_step": more - 1,
+                          "wall_s": [t1 - t0, t2 - t1]}
+    return figures
+
+
 #: --scan-times: (kernel, case, dtype, shape, from a state): zamba2's
 #: scoring forward (B=2, S=4096) and its cache-filling prefill (B=4,
 #: S=1024, from a state); rwkv6's scoring forward and the second segment
@@ -2897,13 +3405,22 @@ def main() -> int:
     rows += phase_moe(args.seed, dev)
     t13 = time.perf_counter()
     phase_families(args.seed, dev)
+
+    # -- phases 14 and 15 --------------------------------------------------
+    t14 = time.perf_counter()
+    train_row, train = phase_train(args.seed, dev)
+    rows.append(train_row)
+    t15 = time.perf_counter()
+    train["paths"] = phase_train_paths(args.seed, dev)
     t_end = time.perf_counter()
     log(f"phase5_s={t6 - t5:.1f} phase6_s={t7 - t6:.1f} "
         f"phase7_s={t8 - t7:.1f} phase8_s={t9 - t8:.1f} "
         f"phase9_s={t10 - t9:.1f} phase10_s={t11 - t10:.1f} "
         f"phase11_s={t12 - t11:.1f} phase12_s={t13 - t12:.1f} "
-        f"phase13_s={t_end - t13:.1f}")
+        f"phase13_s={t14 - t13:.1f} phase14_s={t15 - t14:.1f} "
+        f"phase15_s={t_end - t15:.1f}")
     log(f"total_s={t_end - t_start:.1f}")
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,20 @@ layout and bytes (a bf16 leaf as its raw 2-byte words under the ``'<V2'``
 header that numpy writes for a bfloat16 array), so a checkpoint written by
 either package restores in the other; ``restore_latest`` gives tensors on
 the manager's ``device`` back.
+
+A step's files are written under ``step-<n>.tmp`` and the directory is
+renamed to ``step-<n>`` once the plane has committed it, so the disk
+shows which checkpoints were committed.  A trainer restarted in a new
+process meets a new in-memory plane, where the HopsFS cluster it stands
+for would have kept the manifests: ``register_committed`` enters the
+committed directories into it again, as their writer did.
 """
 from __future__ import annotations
 
+import shutil
 import threading
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,13 +119,37 @@ class CheckpointManager:
     def _write(self, step: int, host: Dict[str, np.ndarray]) -> None:
         base = self.plane.begin_checkpoint(self.job, step)
         step_dir = self.dir / f"step-{step:08d}"
-        step_dir.mkdir(parents=True, exist_ok=True)
+        tmp_dir = self.dir / f"step-{step:08d}.tmp"
+        tmp_dir.mkdir(parents=True, exist_ok=True)
         for path, arr in host.items():
             fname = path.replace("/", "~") + ".shard-00000.npy"
-            _save(step_dir / fname, arr)
+            _save(tmp_dir / fname, arr)
             self.plane.add_shard(base, path, 0)
         self.plane.commit_checkpoint(self.job, step)
+        if step_dir.exists():
+            shutil.rmtree(step_dir)
+        tmp_dir.rename(step_dir)
         self._gc()
+
+    def register_committed(self) -> List[int]:
+        """Enter into the plane every committed step directory on disk
+        that it does not list (a new process's plane lists none); returns
+        their steps."""
+        known = set(self.plane.client.execute(
+            "ls", f"/ckpt/{self.job}").value)
+        added = []
+        for d in sorted(self.dir.glob("step-*")):
+            if not d.is_dir() or d.name.endswith(".tmp") or d.name in known:
+                continue
+            step = int(d.name.split("-")[1])
+            base = self.plane.begin_checkpoint(self.job, step)
+            for f in sorted(d.glob("*.npy")):
+                path, shard = f.name[:-len(".npy")].rsplit(".shard-", 1)
+                self.plane.add_shard(base, path.replace("~", "/"),
+                                     int(shard))
+            self.plane.commit_checkpoint(self.job, step)
+            added.append(step)
+        return added
 
     def _gc(self) -> None:
         names = self.plane.client.execute("ls", f"/ckpt/{self.job}").value

@@ -4,7 +4,9 @@
 version (``ref.attention_ref``) for CPU tensors.  Its backward recomputes
 attention through the plain version's autograd, the recipe of the JAX
 package's ``custom_vjp`` (``repro/kernels/flash_attention/ops.py``): only
-q, k and v are saved.
+q, k and v are saved.  The JAX package has no backward kernel, its VJP of
+the jnp oracle runs outside any Pallas kernel, so this is its backward,
+not a fallback.
 """
 from __future__ import annotations
 

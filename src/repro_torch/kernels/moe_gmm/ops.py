@@ -1,6 +1,8 @@
 """The grouped expert matmul: the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors.  Its backward differentiates the plain version, as
-the reference's ``custom_vjp`` does (``repro/kernels/moe_gmm/ops.py``)."""
+the reference's ``custom_vjp`` does (``repro/kernels/moe_gmm/ops.py``):
+the JAX package has no backward kernel, its VJP of the jnp oracle runs
+outside any Pallas kernel, so this is its backward, not a fallback."""
 from __future__ import annotations
 
 import torch

@@ -6,7 +6,9 @@ reference; here the kernel takes the initial state itself, so on the card
 the cache-filling prefill launches the kernel too and no plain version
 runs.  The function computed is the one ``ref.wkv6_ref(..., s0=s0)``
 computes.  The backward differentiates the plain version, as the
-reference's ``custom_vjp`` does (``repro/kernels/rwkv6_scan/ops.py``).
+reference's ``custom_vjp`` does (``repro/kernels/rwkv6_scan/ops.py``):
+the JAX package has no backward kernel, its VJP of the jnp oracle runs
+outside any Pallas kernel, so this is its backward, not a fallback.
 """
 from __future__ import annotations
 

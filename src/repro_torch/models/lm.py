@@ -16,12 +16,18 @@ Interface (pure functions, the reference's names and parameter trees):
   param_specs(cfg)                      -> ParamSpec tree
   init_cache_specs(cfg, B, S_max)       -> ParamSpec-like tree for caches
   forward(params, batch, cfg=..., ...)  -> (logits, new cache)
+  loss_fn(params, batch, cfg=..., ...)  -> scalar loss
 
 The reference scans over stacked layers (``jax.lax.scan``); here a Python
-loop indexes the stacked parameters layer by layer.  This is the serving
-path (scoring, prefill, decode): ``cfg.remat`` and ``cfg.scan_layers``
-change nothing in an inference forward and are ignored here; training
-maps ``remat`` to ``torch.utils.checkpoint``.
+loop runs the layers, each leaf of the stacked parameters unbound once a
+forward (``_unstack``: one ``stack`` in the backward, not a zero-filled
+``[L, ...]`` gradient a layer).  ``cfg.scan_layers`` changes nothing.
+``cfg.remat`` applies to the dense/moe/vlm decoder stack, as in the
+reference's ``_maybe_remat``: ``"full"`` checkpoints each layer
+(``torch.utils.checkpoint``, nothing saved inside), ``"selective"`` saves
+the outputs of the layer's non-batched matmuls (``aten.mm``/``addmm``,
+the projections) and recomputes the rest.  It changes no number; the
+hybrid, ssm and encdec stacks ignore it, as the reference's do.
 """
 from __future__ import annotations
 
@@ -40,6 +46,40 @@ from .mamba2 import mamba2_block, mamba2_specs
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_map
 from .rwkv6 import rwkv6_att, rwkv6_ffn, rwkv6_specs
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The stacked ``[L, ...]`` parameters as ``n`` per-layer trees: each
+    leaf unbound once (views; its backward is one ``stack``)."""
+    cols = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t, i=i: t[i], cols) for i in range(n)]
+
+
+def _save_projections(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under the reference's ``cfg.remat`` policy while gradients
+    are recorded (a forward without them saves nothing anyway)."""
+    if cfg.remat not in ("full", "selective"):
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if cfg.remat == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda:
+                          create_selective_checkpoint_contexts(
+                              _save_projections))
+    return wrapped
 
 
 def _stack(specs: Any, L: int) -> Any:
@@ -150,22 +190,19 @@ def _decoder_stack(params: Dict[str, Any], x: torch.Tensor, *,
     # traced array, so under the kernels its global layers keep the
     # sliding window (ROADMAP.md queue 3), and so do these
     flags = layer_flags(cfg)
-    new_k, new_v = [], []
-    for i in range(cfg.n_layers):
-        lp = tree_map(lambda a, i=i: a[i], params["layers"])
-        layer_cache = None if cache is None else \
-            {"k": cache["k"][i], "v": cache["v"][i]}
-        h = apply_norm(cfg, lp["ln1"], x)
+
+    def layer(carry_x, lp, is_global, layer_cache):
+        h = apply_norm(cfg, lp["ln1"], carry_x)
         a, new_cache = attention_block(
             lp["attn"], h, cfg=cfg, positions=positions, policy=policy,
-            mesh=mesh, is_global=flags[i], cache=layer_cache,
+            mesh=mesh, is_global=is_global, cache=layer_cache,
             cache_index=cache_index, use_kernels=use_kernels)
         if cfg.parallel_block:
             # command-r: x + attn(ln(x)) + mlp(ln(x)) with the same norm
             m = mlp_block(lp["mlp"], h, cfg=cfg, policy=policy, mesh=mesh)
-            out = x + a + m
+            out = carry_x + a + m
         else:
-            h2 = x + a
+            h2 = carry_x + a
             hn = apply_norm(cfg, lp["ln2"], h2)
             if cfg.is_moe:
                 m = moe_apply(lp["moe"], hn, cfg=cfg, policy=policy,
@@ -174,7 +211,16 @@ def _decoder_stack(params: Dict[str, Any], x: torch.Tensor, *,
                 m = mlp_block(lp["mlp"], hn, cfg=cfg, policy=policy,
                               mesh=mesh)
             out = h2 + m
-        x = shard_constraint(out, ("batch", "seq", "act_embed"), policy, mesh)
+        out = shard_constraint(out, ("batch", "seq", "act_embed"), policy,
+                               mesh)
+        return out, new_cache
+
+    layer = _maybe_remat(layer, cfg)
+    new_k, new_v = [], []
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        layer_cache = None if cache is None else \
+            {"k": cache["k"][i], "v": cache["v"][i]}
+        x, new_cache = layer(x, lp, flags[i], layer_cache)
         if cache is not None:
             new_k.append(new_cache["k"])
             new_v.append(new_cache["v"])
@@ -272,8 +318,7 @@ def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
     decode = cache_index is not None
     stateful = cache is not None or decode
     new = {"wkv": [], "shift_a": [], "shift_f": []}
-    for i in range(cfg.n_layers):
-        lp = tree_map(lambda a, i=i: a[i], params["layers"])
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         st = {key: cache[key][i] for key in new} if stateful else None
         h = rmsnorm(x, lp["ln1"]["scale"], cfg.norm_eps)
         a, st_a = rwkv6_att(lp["att"], h, cfg=cfg, policy=policy, mesh=mesh,
@@ -341,9 +386,10 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
     n_apps = max(1, cfg.n_layers // every)
     new_h, new_conv = [], []
     new_sk, new_sv = [], []
+    layers = _unstack(params["layers"], cfg.n_layers)
     for app in range(n_apps):
         for i in range(app * every, min((app + 1) * every, cfg.n_layers)):
-            lp = tree_map(lambda a, i=i: a[i], params["layers"])
+            lp = layers[i]
             if c is not None or decode:
                 x, st = mamba_layer(x, lp, {"h": c["h"][i],
                                             "conv": c["conv"][i]})
@@ -441,8 +487,7 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
         Bf, Sf = enc_out.shape[:2]
         pos_e = torch.arange(Sf, device=enc_out.device)[None, :].expand(
             Bf, Sf)
-        for i in range(cfg.n_enc_layers):
-            lp = tree_map(lambda a, i=i: a[i], params["enc"])
+        for lp in _unstack(params["enc"], cfg.n_enc_layers):
             enc_out = _encoder_layer(lp, enc_out, pos_e, cfg=cfg,
                                      policy=policy, mesh=mesh)
         enc_out = apply_norm(cfg, params["ln_enc"], enc_out)
@@ -458,8 +503,7 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
                                  dtype=torch.int32, device=dev))
     positions = positions.expand(B, S)
     new_k, new_v = [], []
-    for i in range(cfg.n_dec_layers):
-        lp = tree_map(lambda a, i=i: a[i], params["dec"])
+    for i, lp in enumerate(_unstack(params["dec"], cfg.n_dec_layers)):
         layer_cache = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i]}
         h = apply_norm(cfg, lp["ln1"], x)
@@ -483,3 +527,32 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
     x = apply_norm(cfg, params["ln_f"], x)
     logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
     return logits, new_cache
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], *,
+            cfg: ModelConfig, policy: MeshPolicy = MeshPolicy(),
+            mesh: Any = None, use_kernels: bool = False,
+            device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """Mean next-token NLL over the labels ``>= 0`` (the reference's
+    ``loss_fn``): fp32 logits, logsumexp about the detached max.  The
+    reference takes the gold logit as a one-hot sum, so that a vocab
+    sharded over a mesh needs no all-gather; on one card ``torch.gather``
+    of the clamped labels gives the same value (the one-hot sum adds one
+    logit to zeros) without two ``[B, S, V]`` temporaries."""
+    logits, _ = forward(params, batch, cfg=cfg, policy=policy, mesh=mesh,
+                        use_kernels=use_kernels, device=device)
+    labels = batch["labels"]
+    labels = (labels if torch.is_tensor(labels) else torch.from_numpy(
+        np.asarray(labels))).to(logits.device).long()
+    lf = logits.float()
+    m = lf.amax(-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(lf - m).sum(-1)) + m.squeeze(-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None]).squeeze(-1)
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)

@@ -7,6 +7,9 @@ init law), with the JAX package's names and layout, so one spec tree gives
                             ``torch.Generator``
   * ``params_from_numpy`` — the JAX package's parameters, carried across
                             as numpy arrays (the tests' weights carry)
+  * ``abstract_params``   — tensors on the ``meta`` device: shapes and
+                            dtypes, no memory (``jax.ShapeDtypeStruct``)
+  * ``axes_tree``         — the tree of logical axes
 """
 from __future__ import annotations
 
@@ -84,6 +87,15 @@ def params_from_numpy(tree: Any, device: Union[str, torch.device, None]
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     return tree_map(conv, tree)
+
+
+def abstract_params(specs: Any, dtype: torch.dtype = torch.float32) -> Any:
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
+
+
+def axes_tree(specs: Any) -> Any:
+    return tree_map(lambda s: s.axes, specs)
 
 
 def count_params(specs: Any) -> int:

@@ -1016,3 +1016,114 @@ def test_gmm_at_the_dense_moe_shape_with_ragged_tokens(cuda):
         want = gmm_ref.gmm_ref(a, w)
         _close(y, want, FLASH_ATOL[bf] * float(
             want.float().pow(2).mean().sqrt()), 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# training: the float kernels' Functions and a smoke train step on the card
+# against the CPU
+# ---------------------------------------------------------------------------
+
+def _function_case(kernel):
+    """(fp32 inputs on the host, the op, the launch counter's name) at
+    smoke shapes the kernels take."""
+    g = torch.Generator().manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+    if kernel == "flash_attention":
+        ins = [randn(1, 64, 4, 16), randn(1, 64, 2, 16), randn(1, 64, 2, 16)]
+        return ins, lambda q, k, v: fa_ops.flash_attention(q, k, v), kernel
+    if kernel in ("ssd", "ssd_h0"):
+        ins = [randn(1, 64, 2, 16),
+               torch.nn.functional.softplus(randn(1, 64, 2)),
+               -torch.exp(0.3 * randn(2)), randn(1, 64, 16), randn(1, 64, 16)]
+        if kernel == "ssd_h0":
+            ins.append(randn(1, 2, 16, 16))
+        return ins, lambda x, dt, A, Bc, Cc, *h0: ssd_ops.ssd(
+            x, dt, A, Bc, Cc, h0=h0[0] if h0 else None, chunk=16), "ssd"
+    if kernel == "wkv6":
+        ins = [randn(1, 64, 2, 16), randn(1, 64, 2, 16), randn(1, 64, 2, 16),
+               torch.exp(-torch.exp(0.5 * randn(1, 64, 2, 16))),
+               0.1 * randn(2, 16), randn(1, 2, 16, 16)]
+        return ins, lambda r, k, v, w, u, s0: wkv_ops.wkv6(
+            r, k, v, w, u, s0=s0), kernel
+    ins = [randn(3, 40, 24), randn(3, 24, 20)]
+    return ins, gmm_ops.gmm, "gmm"
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd", "ssd_h0",
+                                    "wkv6", "gmm"])
+def test_kernel_function_gradients_on_card_match_cpu(cuda, kernel):
+    """Each float kernel's autograd Function trains on the card: its
+    forward launches the kernel once, its backward launches none (it
+    differentiates the plain version, as the reference's ``custom_vjp``
+    does), and outputs and gradients agree with the same Function on the
+    CPU (the plain version throughout), fp32: atol 1e-3 and rtol 1e-3,
+    rtol 2e-2 for the two scans (their kernels' own rtol against the
+    plain version, ``WKV_TOL``/``SSD_TOL`` in chip_smoke.py: the
+    gradients are the plain backward applied to the kernel's outputs)."""
+    ins, op, name = _function_case(kernel)
+    rtol = 2e-2 if name in ("ssd", "wkv6") else 1e-3
+
+    def run(dev):
+        ts = [t.to(dev).requires_grad_() for t in ins]
+        reset_launch_counts()
+        out = op(*ts)
+        outs = out if isinstance(out, tuple) else (out,)
+        fwd = launch_counts()
+        grads = torch.autograd.grad(sum(o.square().sum() for o in outs), ts)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return outs, grads, fwd, launch_counts()
+
+    outs, grads, fwd, total = run(cuda)
+    assert fwd[name] == 1 and sum(fwd.values()) == 1 and total == fwd
+    want_outs, want_grads, _, _ = run("cpu")
+    for got, want in zip(outs + grads, want_outs + want_grads):
+        _close(got.cpu(), want, 1e-3, rtol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "gemma3_12b",
+                                  "zamba2_2_7b", "rwkv6_3b"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``train_step_fn`` with the kernels on the card against the same
+    step on the CPU (the kernels' plain versions), fp32, the decoder
+    families under ``remat="full"``: exact launches (the decoder's flash
+    and gmm twice, forward and recompute), the loss within rtol 1e-4, the
+    parameters within 1e-5.  AdamW's eps is 1e-3, as in
+    ``tests/test_torch_train.py``: at the default 1e-8 a gradient within
+    rounding of zero steps by up to lr either way on either device."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import MeshPolicy
+    from repro_torch.train import OptConfig, adamw_init, train_step_fn
+    cfg = get_smoke_config(arch).derive(dtype="float32", remat="full")
+    host = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                       device="cpu")
+    # a copy: the step updates its parameters in place
+    card = tree_map(lambda t: t.to(cuda, copy=True), host)
+    batch = synthetic_batch(2, 32, cfg.vocab_size, step=0, device="cpu")
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=2, eps=1e-3)
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        want = {"flash_attention": L // cfg.shared_attn_every, "ssd": L}
+    elif cfg.family == "ssm":
+        want = {"wkv6": L}
+    else:
+        want = {"flash_attention": 2 * L, "gmm": 6 * L if cfg.is_moe else 0}
+    reset_launch_counts()
+    _, _, got = train_step_fn(card, adamw_init(card), {
+        k: v.to(cuda) for k, v in batch.items()}, cfg=cfg,
+        policy=MeshPolicy(), opt=opt, use_kernels=True, device=cuda)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert {k: n for k, n in counts.items() if n} == \
+        {k: n for k, n in want.items() if n}
+    _, _, loss = train_step_fn(host, adamw_init(host), batch, cfg=cfg,
+                               policy=MeshPolicy(), opt=opt,
+                               use_kernels=True, device="cpu")
+    assert abs(float(got) / float(loss) - 1) <= 1e-4
+    for a, b in zip(tree_leaves(card), tree_leaves(host)):
+        _close(a.cpu(), b, 1e-5, 0.0)
