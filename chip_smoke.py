@@ -8,8 +8,9 @@ Drives the ported paths, the metadata request path (phases 2-4), the
 zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
 (phases 8-10), the metadata path under failover (phase 11), the decoder
 families: qwen3-moe (phase 12), gemma3, qwen2-vl, seamless and mixtral
-(phase 13), and training: qwen1.5-4B (phase 14), the other kernels'
-training paths and the trainer (phase 15).  Phases,
+(phase 13), training: qwen1.5-4B (phase 14), the other kernels'
+training paths and the trainer (phase 15), and the multi-device layer
+(phase 16; its second part on four cards).  Phases,
 each printing its results on lines of its own; any failure raises and the
 script exits non-zero:
 
@@ -215,10 +216,37 @@ script exits non-zero:
     --ckpt-every 5``, then ``--resume --steps 14``: it must resume from
     step 10, its ledger end at step 13, both exit 0.
 
+16. The multi-device layer.  On every card: a one-rank NCCL group and
+    ``make_host_mesh()``; a full-width qwen3-moe layer (MESH1_MOE_BS) on
+    that (1, 1) mesh takes the dense route, bitwise equal to
+    ``mesh=None`` with exactly 3 gmm launches; ``pipeline_apply`` with one
+    stage over 2 qwen1.5-4B layers, bitwise equal to the layers in
+    sequence; the trainer's smoke configuration, two steps on the mesh;
+    one ``phase16 {"ranks": 1, ...}`` line.  When EP_RANKS = 4 cards are
+    visible (else a line says that part did not run and on how many
+    cards): ``nvidia-smi topo -m``, then 4 ranks spawned by
+    ``launch.mesh.spawn_ranks`` (NCCL, one card each, the kernel library
+    built here first) run ``ep_rank``: qwen3_moe_30b_a3b at full width
+    and all 48 layers on a (1, 4) mesh through the expert-parallel route
+    (replicated leaves from the seed, alike on every rank by an
+    all-reduced checksum; each rank's 32 experts from (seed, rank)),
+    scoring at B=2, S=2048: exactly 48 flash, 144 gmm (every one on the
+    TMA route) and 96 all-to-alls a rank, the logits bitwise equal across
+    ranks, a warm forward's time, tokens/s, peak bytes and all-to-all
+    time, its device time by kernel, every launch held against its plain
+    version, gmm's first call replayed for the JSON line; at 2 layers the
+    4-rank output against one card computing the same function
+    (``one_card_moe``: ``_dispatch``, all 128 experts through
+    ``_expert_ffn`` with the route's capacity, ``_combine``) within
+    NOISE_FLOOR relative L2; ``pipeline_apply`` over 4 stages, 8 of
+    qwen1.5-4B's layers (2 a stage), 8 microbatches of B=1, S=512,
+    against the same layers in sequence on one card, both timed.
+
 The line third from the end is the training JSON (phases 14-15), the
 line before the last the kernels' JSON (nine kernels; flash and gmm once
-more for the qwen3-moe path, flash once more for the training path; each
-row names its path), the last line the device JSON.  Without a CUDA device, or outside the repository,
+more for the qwen3-moe path, flash once more for the training path, gmm
+once more for the four-card path when it ran; each row names its path),
+the last line the device JSON.  Without a CUDA device, or outside the repository,
 it exits non-zero and prints no result.
 
 ``--meta-times`` runs none of the phases either: it holds the four
@@ -249,6 +277,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -283,7 +312,9 @@ def card() -> torch.device:
 
 
 def log(*a) -> None:
-    print(*a, flush=True)
+    # one write a line: the ranks of phase 16 share the output
+    sys.stdout.write(" ".join(map(str, a)) + "\n")
+    sys.stdout.flush()
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2808,6 +2839,450 @@ def phase_train_paths(seed: int, dev) -> dict:
     return figures
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the multi-device layer
+# ---------------------------------------------------------------------------
+
+#: phase 16 on one card: a full-width qwen3-moe layer over (B, S) tokens on
+#: a (1, 1) mesh; the one-stage pipeline: qwen1.5-4B's first layers, the
+#: microbatches and their (B, S); the trainer's steps
+MESH1_MOE_BS = (1, 512)
+MESH1_PIPE = (2, 4, (1, 512))
+MESH1_TRAIN_STEPS = 2
+#: on four cards (phase 16's second part): qwen3-moe at full width and all
+#: 48 layers over a (1, 4) mesh, the expert-parallel route, scoring at
+#: EP_SCORE_BS; the depth of the 4-rank-vs-one-card check and its (B, S);
+#: the pipeline: PIPE_LAYERS of qwen1.5-4B's layers over PIPE_STAGES
+#: stages, PIPE_MICRO microbatches of PIPE_BS; the ranks' time limit
+EP_RANKS = 4
+EP_SCORE_BS = (2, 2048)
+EP_CHECK_LAYERS, EP_CHECK_BS = 2, (2, 512)
+PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_BS = 4, 8, 8, (1, 512)
+EP_TIMEOUT = 480.0
+
+
+def decoder_layer_fn(cfg, S: int, dev):
+    """One dense decoder layer of ``cfg`` as ``layer_fn(lp, h)`` (the
+    port's ``_decoder_stack`` at depth 1, the kernels on): what
+    ``pipeline_apply`` runs a layer at a time."""
+    from repro_torch.models.lm import _decoder_stack
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.sharding import MeshPolicy
+    one = cfg.derive(n_layers=1)
+    pos = torch.arange(S, device=dev)[None, :]
+
+    def layer_fn(lp, h):
+        out, _ = _decoder_stack(
+            {"layers": tree_map(lambda a: a[None], lp)}, h, cfg=one,
+            policy=MeshPolicy(), mesh=None,
+            positions=pos.expand(h.shape[0], S), use_kernels=True)
+        return out
+    return layer_fn
+
+
+def layers_in_sequence(layer_fn, layers, n: int, x):
+    """Each microbatch of ``x`` through the ``n`` stacked ``layers`` in
+    turn, on one card: what the pipeline must equal."""
+    from repro_torch.models.params import tree_map
+    outs = []
+    for m in range(x.shape[0]):
+        h = x[m]
+        for i in range(n):
+            h = layer_fn(tree_map(lambda a, i=i: a[i], layers), h)
+        outs.append(h)
+    return torch.stack(outs)
+
+
+def phase_mesh(seed: int, dev) -> dict:
+    """Phase 16, the part every run makes: a one-rank NCCL group and
+    ``make_host_mesh()``; a full-width qwen3-moe layer on that (1, 1) mesh
+    (the dense route) against ``mesh=None``, bitwise; ``pipeline_apply``
+    with one stage against the layers in sequence, bitwise; the trainer's
+    smoke configuration, MESH1_TRAIN_STEPS steps on the mesh.  Returns the
+    line's results."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.launch.train as trainer
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.mesh import init_host_group, make_host_mesh
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import (MeshPolicy, mesh_shape,
+                                               shard_constraint)
+    torch.cuda.empty_cache()
+    owns = init_host_group(dev)
+    try:
+        mesh = make_host_mesh()
+        res = {"ranks": dist.get_world_size(), "backend": dist.get_backend(),
+               "mesh": mesh_shape(mesh)}
+        # 1. a qwen3-moe layer on the (1, 1) mesh: the dense route
+        cfg = get_config("qwen3_moe_30b_a3b")
+        gen = torch.Generator(device=dev).manual_seed(seed + 16)
+        p = init_params(moe.moe_specs(cfg), gen, device=dev)
+        B, S = MESH1_MOE_BS
+        x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(
+            torch.bfloat16)
+        reset_launch_counts()
+        on_mesh = moe.moe_apply(p, x, cfg=cfg, policy=MeshPolicy(),
+                                mesh=mesh, use_kernels=True)
+        res["moe_launches"] = exact_launches("moe_apply on the (1, 1) mesh",
+                                             {"gmm": 3})
+        bare = moe.moe_apply(p, x, cfg=cfg, policy=MeshPolicy(),
+                             use_kernels=True)
+        if not torch.equal(on_mesh, bare):
+            raise AssertionError("moe_apply on the (1, 1) mesh != mesh=None")
+        if shard_constraint(on_mesh, ("batch", "seq", "act_embed"),
+                            MeshPolicy(), mesh) is not on_mesh:
+            raise AssertionError("shard_constraint on a local tensor")
+        res.update(moe_route=moe.moe_route(cfg, mesh),
+                   moe_bitwise_equal_to_no_mesh=True)
+        del p, x, on_mesh, bare
+        # 2. the pipeline with one stage
+        n, M, (B, S) = MESH1_PIPE
+        q = get_config("qwen1_5_4b").derive(n_layers=n)
+        layers = init_params(param_specs(q)["layers"], gen, device=dev)
+        x = torch.randn(M, B, S, q.d_model, generator=gen, device=dev).to(
+            torch.bfloat16)
+        stage = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+        fn = decoder_layer_fn(q, S, dev)
+        stacked = tree_map(lambda a: a[None], layers)
+        pipeline_apply(fn, stacked, x, mesh=stage)          # warm-up
+        out, t_pipe = timed(lambda: pipeline_apply(fn, stacked, x,
+                                                   mesh=stage))
+        seq, t_seq = timed(lambda: layers_in_sequence(fn, layers, n, x))
+        if not torch.equal(out, seq):
+            raise AssertionError(f"one-stage pipeline != layers in sequence:"
+                                 f" max_abs {float((out - seq).abs().max())}")
+        res.update(pipeline_one_stage_bitwise_equal=True,
+                   pipeline_shape=[M, B, S, q.d_model], pipeline_s=t_pipe,
+                   sequence_s=t_seq)
+        del layers, x, out, seq
+        torch.cuda.empty_cache()
+        # 3. the trainer on the mesh (it joins this group)
+        with tempfile.TemporaryDirectory() as d:
+            text = io.StringIO()
+            with redirect_stdout(text):
+                trainer.main(["--smoke", "--steps", str(MESH1_TRAIN_STEPS),
+                              "--batch", "2", "--seq", "64",
+                              "--ckpt-every", "1", "--ckpt-dir", d,
+                              "--device", dev.type])
+            out = text.getvalue()
+        last = MESH1_TRAIN_STEPS - 1
+        if f"done: {MESH1_TRAIN_STEPS} steps" not in out or not \
+                out.strip().endswith(f"ledger last step = {last}") or \
+                f"checkpointed step {MESH1_TRAIN_STEPS}" not in out:
+            raise AssertionError(f"trainer on the mesh: {out[-600:]}")
+        res["trainer"] = out.strip().splitlines()[-1]
+    finally:
+        if owns:
+            dist.destroy_process_group()
+    log("phase16 " + json.dumps(res))
+    return res
+
+
+class AllToAllWatch:
+    """Counts the MoE route's all-to-alls and times each by CUDA events on
+    the current stream (it waits for NCCL's)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.events = moe, moe._all_to_all, []
+        moe._all_to_all = self._timed
+
+    def _timed(self, t, group):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.real(t, group)
+        b.record()
+        self.events.append((a, b, t.numel() * t.element_size()))
+        return out
+
+    def restore(self) -> dict:
+        self.moe._all_to_all = self.real
+        torch.cuda.synchronize()
+        return {"count": len(self.events),
+                "ms": sum(a.elapsed_time(b) for a, b, _ in self.events),
+                "bytes_each": sorted({n for _, _, n in self.events})}
+
+
+def ep_params(cfg, seed: int, rank: int, mesh, dev):
+    """qwen3-moe's parameters for one rank of an EP mesh: the replicated
+    leaves from ``seed`` (alike on every rank), the rank's slices of the
+    experts from ``(seed, rank)``, drawn at their local shape."""
+    from repro_torch.models import axes_tree, init_params, param_specs
+    from repro_torch.models import moe
+    from repro_torch.models.params import ParamSpec
+    from repro_torch.parallel.sharding import mesh_shape
+    specs = param_specs(cfg)
+    pspecs = moe.moe_pspecs(axes_tree(specs), cfg, mesh)
+    sizes = mesh_shape(mesh)
+    rep = torch.Generator(device=dev).manual_seed(seed)
+    own = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + 1
+                                                  + rank)
+
+    def make(s, ps):
+        if isinstance(s, dict):
+            return {k: make(v, ps[k]) for k, v in s.items()}
+        if all(e is None for e in ps):
+            return init_params(s, rep, device=dev)
+        shape = tuple(n // sizes[e] if e else n for n, e in zip(s.shape, ps))
+        return init_params(ParamSpec(shape, s.axes, s.init, s.scale), own,
+                           device=dev)
+
+    return make(specs, pspecs), pspecs
+
+
+def one_card_moe(p, x, *, cfg, policy, mesh=None, use_kernels=False):
+    """The function the EP route computes, on one card: ``_dispatch``,
+    every expert through ``_expert_ffn`` with the route's capacity, then
+    ``_combine`` (a check of this script's, not a route of the model)."""
+    from repro_torch.models import moe
+    B, S, d = x.shape
+    T, k, E = B * S, cfg.experts_per_token, cfg.n_experts
+    C = moe._capacity(T, k, E, cfg.capacity_factor)
+    w, idx = moe._router(p, x, k)
+    buf, keep, pos, w2 = moe._dispatch(x.reshape(T, d), w.reshape(T, k),
+                                       idx.reshape(T, k), E, C)
+    y = moe._expert_ffn(p, buf, use_kernels=use_kernels)
+    return moe._combine(y, idx.reshape(T, k), pos, keep,
+                        w2).reshape(B, S, d)
+
+
+def _same_on_every_rank(t: torch.Tensor) -> bool:
+    """Bitwise equality of ``t`` across the default group: the element-wise
+    largest and smallest of its bits agree."""
+    import torch.distributed as dist
+    bits = t.contiguous().view({8: torch.int64, 4: torch.int32,
+                                2: torch.int16}[t.element_size()])
+    if bits.dtype == torch.int16:          # NCCL reduces no int16
+        bits = bits.to(torch.int32)
+    hi, lo = bits.clone(), bits.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
+    """One rank of phase 16's four-card part (``spawn_ranks``, NCCL, one
+    card a rank).  Every check raises on the rank that fails it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.models.lm as lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import gather_params, init_params, param_specs
+    from repro_torch.models import forward, moe, shard_params
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import P
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {"rank": rank, "device": str(dev)}
+    mesh = make_host_mesh()
+    cfg = get_config("qwen3_moe_30b_a3b")
+    L = res["layers"] = cfg.n_layers
+    params, pspecs = ep_params(cfg, seed, rank, mesh, dev)
+    if moe.moe_route(cfg, mesh) != "ep":
+        raise AssertionError(f"route {moe.moe_route(cfg, mesh)} on {mesh}")
+    rep = [t for t, ps in zip(tree_leaves(params), tree_leaves(pspecs))
+           if all(e is None for e in ps)]
+    sums = torch.stack([t.double().sum() for t in rep])
+    if not _same_on_every_rank(sums):
+        raise AssertionError("the replicated leaves differ across ranks")
+    log(f"phase16 rank {rank}: parameters on {dev}")
+    res["params_on_card"] = sum(t.numel() for t in tree_leaves(params))
+    res["replicated_params"] = sum(t.numel() for t in rep)
+
+    # 1. the scoring forward at full width and depth, expert-parallel
+    B, S = EP_SCORE_BS
+    tok = np.random.default_rng(seed + 16).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    def score():
+        return forward(params, {"tokens": tok}, cfg=cfg, mesh=mesh,
+                       use_kernels=True, device=dev)[0]
+
+    rec = KernelWatch()
+    first = AllToAllWatch()
+    reset_launch_counts()
+    try:
+        lk, t_first = timed(score)
+        launches = launch_counts()
+    finally:
+        rec.restore()
+        a2a_first = first.restore()
+    exact_launches("EP scoring forward", {"flash_attention": L,
+                                          "gmm": 3 * L})
+    routes = rec.routes.get("gmm", [])
+    if routes != ["tma"] * (3 * L):
+        raise AssertionError(f"EP forward's gmm routes: {routes}")
+    if a2a_first["count"] != 2 * L:
+        raise AssertionError(f"{a2a_first['count']} all-to-alls, want "
+                             f"{2 * L}")
+    del lk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    warm = AllToAllWatch()
+    try:
+        lk, t_warm = timed(score)
+    finally:
+        a2a = warm.restore()
+    peak = torch.cuda.max_memory_allocated()
+    if a2a["count"] != 2 * L or lk.shape != (B, S, cfg.vocab_size) \
+            or not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"warm EP forward: {a2a['count']} all-to-alls,"
+                             f" logits {tuple(lk.shape)}")
+    res.update(launches={k: n for k, n in launches.items() if n}, a2a=a2a,
+               first_call_s=t_first,
+               warm_s=t_warm, tokens_per_s=B * S / t_warm, peak_bytes=peak,
+               total_bytes=torch.cuda.get_device_properties(
+                   dev).total_memory)
+    res["logits_bitwise_equal_across_ranks"] = _same_on_every_rank(lk)
+    if not res["logits_bitwise_equal_across_ranks"]:
+        raise AssertionError("EP logits differ across ranks")
+    del lk
+    torch.cuda.empty_cache()
+    # every rank profiles its own forward: the forward's collectives must
+    # meet on every rank in the same order
+    res["device_split"] = device_split(score, t_warm)
+    if rank == 0:
+        res["gmm_row"] = kernel_row(
+            "gmm", rec, launches, "phase16 main-path",
+            f"qwen3_moe_30b_a3b forward, {L} layers over {world} cards, "
+            f"expert-parallel (phase 16)")
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+    res["checked"] = checked_run(score)
+    log(f"phase16 rank {rank}: scoring forward timed and checked")
+
+    # 2. EP_CHECK_LAYERS deep: the four ranks against one card
+    cfg2 = cfg.derive(n_layers=EP_CHECK_LAYERS)
+    p2 = dict(params, layers=tree_map(
+        lambda a: a[:EP_CHECK_LAYERS].clone(), params["layers"]))
+    del params
+    torch.cuda.empty_cache()
+    B, S = EP_CHECK_BS
+    tok2 = np.random.default_rng(seed + 17).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    ep_out = forward(p2, {"tokens": tok2}, cfg=cfg2, mesh=mesh,
+                     use_kernels=True, device=dev)[0]
+    full = gather_params(p2, pspecs, mesh)
+    del p2
+    if rank == 0:
+        real = lm.moe_apply
+        lm.moe_apply = one_card_moe
+        try:
+            one = forward(full, {"tokens": tok2}, cfg=cfg2, mesh=None,
+                          use_kernels=True, device=dev)[0]
+        finally:
+            lm.moe_apply = real
+        err = rel_l2(ep_out, one)
+        res["ep_vs_one_card"] = {
+            "layers": EP_CHECK_LAYERS, "B,S": [B, S], "rel_l2": err,
+            "max_abs": float((ep_out.float() - one.float()).abs().max()),
+            "bitwise": bool(torch.equal(ep_out, one)),
+            "tolerance_rel_l2": NOISE_FLOOR}
+        if err > NOISE_FLOOR:
+            raise AssertionError(f"EP vs one card: {res['ep_vs_one_card']}")
+        del one
+    del full, ep_out
+    torch.cuda.empty_cache()
+
+    log(f"phase16 rank {rank}: {EP_CHECK_LAYERS}-layer check done")
+
+    # 3. the pipeline: PIPE_LAYERS of qwen1.5-4B over PIPE_STAGES stages
+    q = get_config("qwen1_5_4b").derive(n_layers=PIPE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    layers = init_params(param_specs(q)["layers"], gen, device=dev)
+    B, S = PIPE_BS
+    x = torch.randn(PIPE_MICRO, B, S, q.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    per = PIPE_LAYERS // PIPE_STAGES
+    stacked = tree_map(lambda a: a.reshape(PIPE_STAGES, per, *a.shape[1:]),
+                       layers)
+    stages = init_device_mesh("cuda", (PIPE_STAGES,),
+                              mesh_dim_names=("stage",))
+    local = shard_params(stacked, tree_map(lambda a: P("stage"), stacked),
+                         stages, dev)
+    fn = decoder_layer_fn(q, S, dev)
+    pipeline_apply(fn, local, x, mesh=stages)           # warm-up
+    dist.barrier()
+    out, t_pipe = timed(lambda: pipeline_apply(fn, local, x, mesh=stages))
+    res["pipeline_s"] = t_pipe
+    if rank == 0:
+        layers_in_sequence(fn, layers, PIPE_LAYERS, x[:1])    # warm-up
+        seq, t_seq = timed(lambda: layers_in_sequence(fn, layers,
+                                                      PIPE_LAYERS, x))
+        err = rel_l2(out, seq)
+        res["pipeline"] = {
+            "stages": PIPE_STAGES, "layers": PIPE_LAYERS,
+            "microbatches": PIPE_MICRO, "B,S": [B, S], "pipeline_s": t_pipe,
+            "sequence_s": t_seq, "rel_l2": err, "bitwise":
+            bool(torch.equal(out, seq)), "tolerance_rel_l2": NOISE_FLOOR}
+        if err > NOISE_FLOOR:
+            raise AssertionError(f"pipeline vs sequence: {res['pipeline']}")
+    dist.barrier()
+    return res
+
+
+def phase_mesh4(seed: int) -> list:
+    """Phase 16's four-card part, when EP_RANKS cards are visible: EP_RANKS
+    ranks spawned (NCCL, one card each) run ``ep_rank``; returns gmm's EP
+    row for the kernels' line, or nothing when it did not run."""
+    import tempfile
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn_ranks
+    n = torch.cuda.device_count()
+    if n < EP_RANKS:
+        log(f"phase16 four-card part NOT RUN: {n} card(s) visible, it "
+            f"needs {EP_RANKS}; nothing of it is reported")
+        return []
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    log("phase16 nvidia-smi topo -m:\n" + (topo.stdout + topo.stderr).rstrip())
+    log("phase16 peer access (torch.cuda.can_device_access_peer): " + str(
+        [[i == j or torch.cuda.can_device_access_peer(i, j)
+          for j in range(n)] for i in range(n)]))
+    _build.library()              # built once here: the ranks only load it
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ranks, t = timed(lambda: spawn_ranks(
+            ep_rank, EP_RANKS, seed, store_dir=d, device_type="cuda",
+            timeout=EP_TIMEOUT))
+    zero = ranks[0]
+    log(f"phase16 qwen3_moe_30b_a3b, {zero['layers']} layers over "
+        f"{EP_RANKS} cards "
+        f"(EP, (1, {EP_RANKS}) mesh): {zero['params_on_card']} params fp32 "
+        f"a card ({zero['replicated_params']} replicated, alike on every "
+        f"rank by an all-reduced checksum); spawn to end wall_s={t:.1f}")
+    for r in ranks:
+        log(f"phase16 rank {r['rank']} ({r['device']}): scoring B,S="
+            f"{EP_SCORE_BS} warm wall_s={r['warm_s']:.4f} tokens_per_s="
+            f"{r['tokens_per_s']:.1f} (first call {r['first_call_s']:.4f} s)"
+            f" launches={json.dumps(r['launches'])} all-to-alls "
+            f"{r['a2a']['count']} ({r['a2a']['bytes_each']} bytes each) in "
+            f"{r['a2a']['ms']:.3f} ms; peak_device_bytes={r['peak_bytes']} "
+            f"of {r['total_bytes']}; logits bitwise equal across ranks: "
+            f"{r['logits_bitwise_equal_across_ranks']}; {r['checked']}")
+    log(f"phase16 rank 0 {zero['device_split']}")
+    log(f"phase16 EP vs one card: {json.dumps(zero['ep_vs_one_card'])}")
+    from repro_torch.parallel.pipeline import pipeline_bubble_fraction
+    log(f"phase16 pipeline: {json.dumps(zero['pipeline'])} "
+        f"bubble_fraction={pipeline_bubble_fraction(PIPE_STAGES, PIPE_MICRO)}"
+        f" (every rank: {[round(r['pipeline_s'], 4) for r in ranks]} s)")
+    return [zero["gmm_row"]]
+
+
 #: --scan-times: (kernel, case, dtype, shape, from a state): zamba2's
 #: scoring forward (B=2, S=4096) and its cache-filling prefill (B=4,
 #: S=1024, from a state); rwkv6's scoring forward and the second segment
@@ -2835,7 +3310,8 @@ def kernel_us(fn, calls: int = 5, cats=("kernel",)) -> list:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    path = ROOT / "build" / "scan_times_trace.json"
+    # one file a process: phase 16's ranks profile at once
+    path = ROOT / "build" / f"scan_times_trace.{os.getpid()}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     with open(path) as f:
@@ -3412,13 +3888,18 @@ def main() -> int:
     rows.append(train_row)
     t15 = time.perf_counter()
     train["paths"] = phase_train_paths(args.seed, dev)
+
+    # -- phase 16 ----------------------------------------------------------
+    t16 = time.perf_counter()
+    phase_mesh(args.seed, dev)
+    rows += phase_mesh4(args.seed)
     t_end = time.perf_counter()
     log(f"phase5_s={t6 - t5:.1f} phase6_s={t7 - t6:.1f} "
         f"phase7_s={t8 - t7:.1f} phase8_s={t9 - t8:.1f} "
         f"phase9_s={t10 - t9:.1f} phase10_s={t11 - t10:.1f} "
         f"phase11_s={t12 - t11:.1f} phase12_s={t13 - t12:.1f} "
         f"phase13_s={t14 - t13:.1f} phase14_s={t15 - t14:.1f} "
-        f"phase15_s={t_end - t15:.1f}")
+        f"phase15_s={t16 - t15:.1f} phase16_s={t_end - t16:.1f}")
     log(f"total_s={t_end - t_start:.1f}")
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,12 +5,16 @@ Wires together: config registry -> data pipeline (registry-backed shards)
 -> fleet runtime (heartbeats, failover, elastic re-mesh).
 
 Runs on the card unless ``--device cpu`` is given (without CUDA it
-raises).  One card has no mesh: the step gets ``mesh=None`` and the fleet
-a model axis of 1, what the reference's ``make_host_mesh()`` gives on one
-device.
+raises), on ``make_host_mesh()`` as the reference does: under a
+multi-process launch (``torchrun``, ``WORLD_SIZE`` set) one rank a card
+(``LOCAL_RANK``), the MoE experts split over the ranks
+(``models.moe.moe_pspecs``), every rank on the same batch; otherwise one
+rank.  Rank 0 prints and writes the checkpoints (the experts gathered
+from every rank first); every rank resumes from them.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1_5_4b \\
       --smoke --steps 20 --batch 8 --seq 64
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train ...
 
 ``--resume`` restores the latest committed checkpoint of ``--ckpt-dir``;
 a new process's metadata plane is new, so the committed step directories
@@ -25,17 +29,31 @@ import time
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt import CheckpointManager
 from ..configs import ARCHS, get_config, get_smoke_config
 from ..data import DataPipeline, synthetic_batch
 from ..device import resolve_device
 from ..metaplane import MetadataPlane
-from ..models import init_params, param_specs
-from ..parallel.sharding import MeshPolicy
+from ..models import (axes_tree, gather_params, init_params, param_specs,
+                      shard_params)
+from ..models.moe import moe_pspecs
+from ..parallel.sharding import MeshPolicy, mesh_shape
 from ..runtime import FleetRuntime
 from ..train.optimizer import OptConfig, adamw_init
 from ..train.step import make_train_step
+from .mesh import init_host_group, make_host_mesh
+
+
+def _init_sharded(specs, pspecs, gen, mesh, dev):
+    """``init_params``'s tensors, each leaf cut to this rank's slice as
+    soon as it is drawn (the same numbers as one ``init_params`` call)."""
+    if isinstance(specs, dict):
+        return {k: _init_sharded(v, pspecs[k], gen, mesh, dev)
+                for k, v in specs.items()}
+    return shard_params(init_params(specs, gen, device=dev), pspecs, mesh,
+                        dev)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -57,30 +75,51 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    owns_group = init_host_group(dev)
+    try:
+        _train(args, dev)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
+
+def _train(args: argparse.Namespace, dev: torch.device) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh = make_host_mesh(dev.type)
     policy = MeshPolicy()
     job = f"{args.arch}-train"
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     plane = MetadataPlane(device=dev)
-    fleet = FleetRuntime(plane, n_workers=4, model_axis=1)
+    fleet = FleetRuntime(plane, n_workers=4,
+                         model_axis=mesh_shape(mesh)["model"])
     pipeline = DataPipeline(plane, f"{args.arch}-ds", n_shards=16)
     ckpt = CheckpointManager(args.ckpt_dir, plane, job, keep=2, device=dev)
 
-    params = init_params(param_specs(cfg),
-                         torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
+    specs = param_specs(cfg)
+    pspecs = moe_pspecs(axes_tree(specs), cfg, mesh)
+    opt_pspecs = {"mu": pspecs, "nu": pspecs, "step": ()}
+    params = _init_sharded(specs, pspecs,
+                           torch.Generator(device=dev).manual_seed(0), mesh,
+                           dev)
     opt_state = adamw_init(params)
     start = 0
     if args.resume:
         ckpt.register_committed()
         restored = ckpt.restore_latest()
         if restored is not None:
-            start, params, opt_state = restored
-            print(f"resumed from step {start}")
+            start, p_full, o_full = restored
+            params = shard_params(p_full, pspecs, mesh, dev)
+            opt_state = shard_params(o_full, opt_pspecs, mesh, dev)
+            del p_full, o_full
+            say(f"resumed from step {start}")
 
     opt = OptConfig(total_steps=max(args.steps, 1))
-    step_fn = make_train_step(cfg, policy, None, opt=opt,
+    step_fn = make_train_step(cfg, policy, mesh, opt=opt,
                               microbatches=args.microbatches, device=dev)
 
     t0 = time.time()
@@ -89,8 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         plane.tick()
         if step == args.fail_worker_at:
             fleet.fail_worker(0)
-            print(f"[step {step}] injected worker-0 failure; "
-                  f"leader={fleet.leader()} mesh={fleet.maybe_remesh()}")
+            say(f"[step {step}] injected worker-0 failure; "
+                f"leader={fleet.leader()} mesh={fleet.maybe_remesh()}")
         shard = pipeline.lease(worker=fleet.leader() or 0)
         if shard is not None:
             pipeline.heartbeat(fleet.leader() or 0, shard)
@@ -111,13 +150,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             pipeline.complete(fleet.leader() or 0, shard)
         plane.record_step(job, step, loss=float(loss))
         if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:4d} loss {float(loss):8.4f} "
-                  f"({time.time() - t0:5.1f}s)")
+            say(f"step {step:4d} loss {float(loss):8.4f} "
+                f"({time.time() - t0:5.1f}s)")
         if (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, params, opt_state)
-            print(f"checkpointed step {step + 1}")
-    print(f"done: {args.steps - start} steps in {time.time() - t0:.1f}s; "
-          f"ledger last step = {plane.last_step(job)}")
+            # every rank takes part in gathering the experts' slices
+            full = (gather_params(params, pspecs, mesh),
+                    gather_params(opt_state, opt_pspecs, mesh))
+            if lead:
+                ckpt.save(step + 1, *full)
+            del full
+            say(f"checkpointed step {step + 1}")
+    say(f"done: {args.steps - start} steps in {time.time() - t0:.1f}s; "
+        f"ledger last step = {plane.last_step(job)}")
 
 
 if __name__ == "__main__":

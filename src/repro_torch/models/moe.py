@@ -1,26 +1,50 @@
 """Mixture-of-Experts layer: token-choice top-k routing, the JAX package's
 ``repro.models.moe`` in PyTorch, with its names and parameter layout
-(``router [d, E]``, ``wi``/``wg [E, d, f]``, ``wo [E, f, d]``).
+(``router [d, E]``, ``wi``/``wg [E, d, f]``, ``wo [E, f, d]``), and its
+three routes, chosen by :func:`moe_route` from the mesh as there:
 
-On one card :func:`moe_apply` takes the dense route (:func:`moe_dense`),
-as the reference does without a mesh: every token goes through every
-expert and the top-k outputs are gathered and weighted.  Under
-``use_kernels`` the experts' three matmuls go through
-``kernels.moe_gmm.ops.gmm`` (the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors).  The capacity-buffer helpers
-(:func:`_dispatch`, :func:`_combine`) are the expert- and
-tensor-parallel routes' building blocks; those routes themselves
-(``all_to_all`` and ``psum`` inside ``shard_map`` in the reference) wait
-for multi-device, and any mesh raises, as ``shard_constraint`` does.
+  * **dense** (no mesh, or a `model` axis of 1): every token goes through
+    every expert and the top-k outputs are gathered and weighted
+    (:func:`moe_dense`), the oracle of the others.
+  * **EP (expert parallel)**, when the `model` axis divides the experts:
+    each rank holds ``E / M`` experts; the capacity buffers
+    ``[M, E_loc, C, d]`` go out and back by ``all_to_all_single`` over the
+    mesh's `model` group (qwen3-moe: 128 experts / 4 = 32 a card).
+  * **TP (tensor parallel)** otherwise: each rank holds every expert's
+    slice of the hidden dim; the down-projection is summed by
+    ``all_reduce`` (mixtral's 8 experts on a 16-way axis).
+
+:func:`moe_pspecs` says which slice of each parameter a rank holds; the
+router is replicated.  Under ``use_kernels`` the experts' three matmuls go
+through ``kernels.moe_gmm.ops.gmm`` on the rank's local experts (the CUDA
+kernel for CUDA tensors, its plain version for CPU tensors).
+
+The collectives are the autograd-aware ones
+(``torch.distributed.nn.functional``), and the route's inputs and output
+carry the transpose rules of the reference's ``shard_map``: every rank
+computes the same loss from the same tokens, so a rank's gradient of the
+route's output counts 1/M (:class:`_ToReplicated`) and the gradients of
+the replicated inputs, tokens and router, are summed over the group
+(:class:`_FromReplicated`).  Each rank then holds the whole gradient of
+the replicated leaves and its experts' share, as ``jax.grad`` gives.
+
+One departure: the reference's EP reshapes the exchanged
+``[M, E_loc, C, d]`` buffer to ``[E_loc, M * C, d]`` without moving the
+source axis behind the expert axis, so with ``E_loc > 1`` a local expert
+runs other experts' tokens and the ranks' outputs differ (ROADMAP.md
+queue 3).  Here the source axis is moved first: each token goes through
+its own expert, and the route equals ``_dispatch``, every expert, then
+``_combine`` on one device, on every rank alike.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import MeshPolicy
+from ..parallel.sharding import MeshPolicy, P, is_device_mesh, mesh_shape
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -132,13 +156,146 @@ def _combine(y_buf: torch.Tensor, idx: torch.Tensor, pos: torch.Tensor,
     return torch.sum(gathered * w[..., None], dim=1)
 
 
+def moe_route(cfg: ModelConfig, mesh: Any = None) -> str:
+    """``"dense"``, ``"ep"`` or ``"tp"``: the reference's dispatch on the
+    mesh's `model` axis."""
+    if mesh is None:
+        return "dense"
+    if not is_device_mesh(mesh):
+        raise TypeError(f"moe_apply: {type(mesh).__name__} is not a "
+                        f"torch.distributed DeviceMesh")
+    M = mesh_shape(mesh).get("model", 1)
+    if M == 1:
+        return "dense"
+    return "ep" if cfg.n_experts % M == 0 else "tp"
+
+
+def moe_pspecs(axes_tree: Any, cfg: ModelConfig, mesh: Any = None) -> Any:
+    """Each leaf's PartitionSpec as the MoE routes hold the parameters on
+    ``mesh`` (the reference's ``shard_map`` in_specs): the experts'
+    weights (the leaves with an ``expert_mlp`` axis) split over `model` by
+    expert (EP) or by hidden dim (TP); everything else, the router
+    included, replicated."""
+    split = {"ep": "experts", "tp": "expert_mlp"}.get(moe_route(cfg, mesh))
+
+    def spec(axes):
+        if split is not None and "expert_mlp" in axes:
+            return P(*("model" if a == split else None for a in axes))
+        return P(*(None,) * len(axes))
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return spec(t)
+
+    return walk(axes_tree)
+
+
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
               policy: MeshPolicy, mesh: Any = None,
               use_kernels: bool = False) -> torch.Tensor:
-    """The dense route on one card (``mesh is None``), as the reference
-    without a mesh; its routes over a device mesh are not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the MoE routes over a device mesh (all_to_all, psum) are not "
-            "ported yet (ROADMAP.md queue 1 item 3, multi-device)")
-    return moe_dense(p, x, cfg, use_kernels=use_kernels)
+    """Dispatch to EP / TP / dense based on mesh shape; ``p`` holds this
+    rank's slices (:func:`moe_pspecs`), ``x`` this rank's tokens."""
+    route = moe_route(cfg, mesh)
+    if route == "dense":
+        return moe_dense(p, x, cfg, use_kernels=use_kernels)
+    route_fn = _moe_ep if route == "ep" else _moe_tp
+    return route_fn(p, x, cfg, mesh.get_group("model"), use_kernels)
+
+
+class _FromReplicated(torch.autograd.Function):
+    """Into the route from a tensor every rank of ``group`` holds alike:
+    the identity; its gradient is summed over the group."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ToReplicated(torch.autograd.Function):
+    """Out of the route to a tensor every rank holds alike: the identity;
+    each of the ``n`` ranks' identical losses counts 1/n of its
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _capacity(T: int, k: int, E: int, capacity_factor: float) -> int:
+    return max(8, int(math.ceil(T * k / E * capacity_factor)))
+
+
+def _route_in(p, x, cfg: ModelConfig, group):
+    """The routes' common front: the replicated inputs marked, the router,
+    and the tokens in capacity buffers ``[E, C, d]``."""
+    x = _FromReplicated.apply(x, group)
+    router = _FromReplicated.apply(p["router"], group)
+    B, S, d = x.shape
+    T, k, E = B * S, cfg.experts_per_token, cfg.n_experts
+    C = _capacity(T, k, E, cfg.capacity_factor)
+    w, idx = _router({"router": router}, x, k)
+    idx = idx.reshape(T, k)
+    buf, keep, pos, w2 = _dispatch(x.reshape(T, d), w.reshape(T, k), idx,
+                                   E, C)
+    return buf, (idx, pos, keep, w2)
+
+
+def _route_out(y_buf, combine_args, shape, group):
+    out = _combine(y_buf, *combine_args).reshape(shape)
+    return _ToReplicated.apply(out, group.size())
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    from torch.distributed.nn.functional import all_to_all_single
+    t = t.contiguous()
+    return all_to_all_single(torch.empty_like(t), t, group=group)
+
+
+def _moe_ep(p, x, cfg: ModelConfig, group, use_kernels: bool
+            ) -> torch.Tensor:
+    """Expert parallelism over the `model` group with all_to_all."""
+    E, M = cfg.n_experts, group.size()
+    E_loc = E // M
+    if p["wi"].shape[0] != E_loc:
+        raise ValueError(f"EP on {M} ranks: each holds {E_loc} of {E} "
+                         f"experts, not {p['wi'].shape[0]} (moe_pspecs)")
+    d = x.shape[-1]
+    buf, combine_args = _route_in(p, x, cfg, group)
+    C = buf.shape[1]
+    # exchange: [E, C, d] -> [M, E_loc, C, d]; block m goes to rank m and
+    # comes back as [M (source), E_loc, C, d]
+    buf = _all_to_all(buf.reshape(M, E_loc, C, d), group)
+    h = buf.transpose(0, 1).reshape(E_loc, M * C, d)
+    y = _expert_ffn(p, h, use_kernels=use_kernels)       # local experts
+    y = _all_to_all(y.reshape(E_loc, M, C, d).transpose(0, 1), group)
+    return _route_out(y.reshape(E, C, d), combine_args, x.shape, group)
+
+
+def _moe_tp(p, x, cfg: ModelConfig, group, use_kernels: bool
+            ) -> torch.Tensor:
+    """Tensor parallelism: all experts on every rank, hidden dim sharded
+    over `model`; all_reduce sums the down-projection."""
+    from torch.distributed.nn.functional import all_reduce
+    f, M = cfg.moe_d_ff or cfg.d_ff, group.size()
+    if p["wi"].shape[-1] * M != f:
+        raise ValueError(f"TP on {M} ranks: each holds {f // M} of the "
+                         f"{f} hidden units, not {p['wi'].shape[-1]} "
+                         f"(moe_pspecs)")
+    buf, combine_args = _route_in(p, x, cfg, group)
+    y_buf = _expert_ffn(p, buf, use_kernels=use_kernels)  # sharded hidden
+    y_buf = all_reduce(y_buf, group=group)
+    return _route_out(y_buf, combine_args, x.shape, group)

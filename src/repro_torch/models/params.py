@@ -7,6 +7,9 @@ init law), with the JAX package's names and layout, so one spec tree gives
                             ``torch.Generator``
   * ``params_from_numpy`` — the JAX package's parameters, carried across
                             as numpy arrays (the tests' weights carry)
+  * ``shard_params``      — a full tree cut to one rank's slices of a
+                            device mesh, by a tree of PartitionSpecs;
+                            ``gather_params`` the way back
   * ``abstract_params``   — tensors on the ``meta`` device: shapes and
                             dtypes, no memory (``jax.ShapeDtypeStruct``)
   * ``axes_tree``         — the tree of logical axes
@@ -87,6 +90,82 @@ def params_from_numpy(tree: Any, device: Union[str, torch.device, None]
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     return tree_map(conv, tree)
+
+
+def _rank_slice(a: Any, spec: Tuple[Any, ...], coord: dict,
+                sizes: dict) -> Any:
+    """The block of ``a`` that the rank at mesh coordinates ``coord``
+    holds under ``spec`` (a dimension split over several mesh axes is cut
+    with the first of them major, as JAX lays out a PartitionSpec)."""
+    if len(spec) > a.ndim:
+        raise ValueError(f"spec {spec} for a {a.ndim}-d leaf")
+    index = []
+    for dim, entry in enumerate(spec):
+        names = () if entry is None else \
+            (entry if isinstance(entry, tuple) else (entry,))
+        n, i = 1, 0
+        for name in names:
+            n, i = n * sizes[name], i * sizes[name] + coord[name]
+        if a.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(a.shape)} does not "
+                             f"split {n} ways ({spec})")
+        step = a.shape[dim] // n
+        index.append(slice(i * step, (i + 1) * step))
+    return a[tuple(index)]
+
+
+def shard_params(tree: Any, pspecs: Any, mesh: Any,
+                 device: Union[str, torch.device, None] = None) -> Any:
+    """This rank's slices of a full parameter tree (numpy arrays or
+    tensors) on ``mesh``: each leaf cut by its PartitionSpec in ``pspecs``
+    (a tree of the same keys, e.g. ``parallel.sharding.param_pspecs`` or
+    ``models.moe.moe_pspecs``), then carried to ``device`` as
+    :func:`params_from_numpy` does."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    coord, sizes = dict(zip(names, coord)), dict(zip(names, mesh.shape))
+    dev = resolve_device(device)
+
+    def cut(a: Any, spec: Tuple[Any, ...]) -> torch.Tensor:
+        if torch.is_tensor(a):
+            return _rank_slice(a, spec, coord, sizes).to(dev, copy=True)
+        return params_from_numpy(_rank_slice(np.asarray(a), spec, coord,
+                                             sizes), dev)
+
+    def walk(t: Any, s: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        return cut(t, s)
+
+    return walk(tree, pspecs)
+
+
+def gather_params(tree: Any, pspecs: Any, mesh: Any) -> Any:
+    """The inverse of :func:`shard_params`: every rank's slices gathered
+    into the full tree on every rank (a collective over the groups of the
+    mesh axes that split a leaf; a leaf split over none is returned as it
+    is)."""
+    import torch.distributed as dist
+
+    def full(t: torch.Tensor, spec: Tuple[Any, ...]) -> torch.Tensor:
+        for dim, entry in enumerate(spec):
+            names = () if entry is None else \
+                (entry if isinstance(entry, tuple) else (entry,))
+            for name in reversed(names):          # the minor axis first
+                group = mesh.get_group(name)
+                parts = [torch.empty_like(t) for _ in range(group.size())]
+                dist.all_gather(parts, t.contiguous(), group=group)
+                t = torch.cat(parts, dim)
+        return t
+
+    def walk(t: Any, s: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        return full(t, s)
+
+    return walk(tree, pspecs)
 
 
 def abstract_params(specs: Any, dtype: torch.dtype = torch.float32) -> Any:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -81,13 +81,17 @@ def _paired(tree: Any, *others: Any) -> Iterator[Tuple[Any, ...]]:
 
 @torch.no_grad()
 def adamw_update(c: OptConfig, params: Any, grads: Any,
-                 state: Dict[str, Any]) -> Tuple[Any, Dict[str, Any]]:
+                 state: Dict[str, Any], gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step.  Updates ``params``, ``state["mu"]``,
     ``state["nu"]`` and ``state["step"]`` in place and returns
-    ``(params, state)``, the same objects."""
+    ``(params, state)``, the same objects.  ``gnorm`` is the norm of the
+    whole gradient where ``grads`` holds only this rank's slices of some
+    leaves (``train.step``); by default ``global_norm(grads)``."""
     step = state["step"]
     step.add_(1)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(c.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(c, step)
     sf = step.float()

@@ -9,7 +9,12 @@ PyTorch (its launcher jit-compiles them; here they run eagerly).
 
 ``use_kernels`` is the reference's ``use_pallas``; ``device`` is where the
 parameters are (the card unless ``device="cpu"``), as ``forward`` takes
-it.
+it.  On a mesh each rank runs the step on its own copy of the batch and of
+the replicated parameters, and on its slices of the experts
+(``models.moe.moe_pspecs``); the gradient's norm for the clip sums those
+slices' squares over the `model` group, so every rank clips alike.  The
+data axis must be 1, as ``launch.mesh.make_host_mesh`` builds it: the
+batch is not split over ranks.
 """
 from __future__ import annotations
 
@@ -18,11 +23,12 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 
-from ..models import forward, loss_fn
+from ..models import axes_tree, forward, loss_fn, param_specs
 from ..models.config import ModelConfig
+from ..models.moe import moe_pspecs
 from ..models.params import tree_leaves, tree_map
-from ..parallel.sharding import MeshPolicy
-from .optimizer import OptConfig, adamw_update
+from ..parallel.sharding import MeshPolicy, mesh_shape
+from .optimizer import OptConfig, _paired, adamw_update
 
 Device = Union[str, torch.device, None]
 
@@ -30,6 +36,28 @@ Device = Union[str, torch.device, None]
 def _unflatten_like(tree: Any, leaves: list) -> Any:
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def _mesh_gnorm(cfg: ModelConfig, mesh: Any, grads: Any):
+    """The whole gradient's norm on ``mesh``, or None where no leaf is
+    split over ranks (then each rank's own gradient is whole)."""
+    if mesh is None:
+        return None
+    sizes = mesh_shape(mesh)
+    if sizes.get("data", 1) * sizes.get("pod", 1) != 1:
+        raise ValueError(f"train step on a {sizes} mesh: the data axis "
+                         f"must be 1 (each rank runs the whole batch)")
+    specs = moe_pspecs(axes_tree(param_specs(cfg)), cfg, mesh)
+    whole, split = [], []
+    for g, spec in _paired(grads, specs):
+        (split if any(e is not None for e in spec) else whole).append(
+            g.float().square().sum())
+    if not split:
+        return None
+    import torch.distributed as dist
+    part = torch.stack(split).sum()
+    dist.all_reduce(part, group=mesh.get_group("model"))
+    return torch.sqrt(torch.stack(whole).sum() + part)
 
 
 def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
@@ -74,7 +102,9 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
         for g in grads:
             g.div_(microbatches)
         loss = loss / microbatches
-    adamw_update(opt, params, _unflatten_like(params, grads), opt_state)
+    grads = _unflatten_like(params, grads)
+    adamw_update(opt, params, grads, opt_state,
+                 gnorm=_mesh_gnorm(cfg, mesh, grads))
     return params, opt_state, loss
 
 

@@ -1127,3 +1127,52 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     assert abs(float(got) / float(loss) - 1) <= 1e-4
     for a, b in zip(tree_leaves(card), tree_leaves(host)):
         _close(a.cpu(), b, 1e-5, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on one rank: NCCL, a (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+def test_one_rank_nccl_mesh_takes_the_dense_route_and_one_stage(cuda):
+    """A one-rank NCCL group and ``make_host_mesh()``: qwen3-moe's smoke
+    MoE layer with the kernels on that mesh is the ``mesh=None`` layer
+    bitwise (a model axis of 1 is the dense route, three gmm launches),
+    ``shard_constraint`` returns its input, and ``pipeline_apply`` with one
+    stage equals the layers in sequence."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import init_host_group, make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as t_moe
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import MeshPolicy, shard_constraint
+    owns = init_host_group(cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_host_mesh()
+        cfg = get_smoke_config("qwen3_moe_30b_a3b")
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        p = init_params(t_moe.moe_specs(cfg), gen, device=cuda)
+        x = torch.randn(2, 64, cfg.d_model, generator=gen, device=cuda
+                        ).to(torch.bfloat16)
+        reset_launch_counts()
+        got = t_moe.moe_apply(p, x, cfg=cfg, policy=MeshPolicy(), mesh=mesh,
+                              use_kernels=True)
+        assert launch_counts()["gmm"] == 3
+        want = t_moe.moe_apply(p, x, cfg=cfg, policy=MeshPolicy(),
+                               use_kernels=True)
+        assert torch.equal(got, want)
+        assert shard_constraint(got, ("batch", "seq", "act_embed"),
+                                MeshPolicy(), mesh) is got
+        stages = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+        w = torch.randn(1, 3, 64, 64, generator=gen, device=cuda) * 0.1
+        h = torch.randn(4, 2, 64, generator=gen, device=cuda)
+        out = pipeline_apply(lambda lp, a: torch.tanh(a @ lp), w, h,
+                             mesh=stages)
+        for i in range(3):
+            h = torch.tanh(h @ w[0, i])
+        assert torch.equal(out, h)
+    finally:
+        if owns:
+            dist.destroy_process_group()

@@ -475,8 +475,17 @@ def test_every_arch_forward_shapes_and_finite(arch):
 def test_shard_constraint_is_the_identity_on_one_card():
     x = torch.ones(2, 3)
     assert shard_constraint(x, ("batch", "seq"), TP) is x
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         shard_constraint(x, ("batch", "seq"), TP, mesh=object())
+    # a one-rank (1, 1) gloo mesh: the constraint is the identity
+    from repro_torch.launch.mesh import init_host_group, make_host_mesh
+    owns = init_host_group(torch.device(CPU))
+    try:
+        mesh = make_host_mesh(CPU)
+        assert shard_constraint(x, ("batch", "seq"), TP, mesh=mesh) is x
+    finally:
+        if owns:
+            torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -213,8 +213,19 @@ def test_moe_apply_takes_the_dense_route_on_one_card(qwen3_layer):
     _, tcfg, _, tlp, x = qwen3_layer
     got = t_moe.moe_apply(tlp, _t(x), cfg=tcfg, policy=TP, mesh=None)
     assert torch.equal(got, t_moe.moe_dense(tlp, _t(x), tcfg))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_moe.moe_apply(tlp, _t(x), cfg=tcfg, policy=TP, mesh=object())
+    # a one-rank (1, 1) gloo mesh: a model axis of 1 takes the dense route
+    from repro_torch.launch.mesh import init_host_group, make_host_mesh
+    owns = init_host_group(torch.device(CPU))
+    try:
+        mesh = make_host_mesh(CPU)
+        assert t_moe.moe_route(tcfg, mesh) == "dense"
+        on_mesh = t_moe.moe_apply(tlp, _t(x), cfg=tcfg, policy=TP, mesh=mesh)
+        assert torch.equal(on_mesh, got)
+    finally:
+        if owns:
+            torch.distributed.destroy_process_group()
 
 
 def _chip_smoke():
