@@ -9,8 +9,9 @@ zamba2 model path (phases 5-7), gmm's own path and the rwkv6 model path
 (phases 8-10), the metadata path under failover (phase 11), the decoder
 families: qwen3-moe (phase 12), gemma3, qwen2-vl, seamless and mixtral
 (phase 13), training: qwen1.5-4B (phase 14), the other kernels'
-training paths and the trainer (phase 15), and the multi-device layer
-(phase 16; its second part on four cards).  Phases,
+training paths and the trainer (phase 15), the multi-device layer
+(phase 16; its second part on four cards) and one production rank's
+step against the dry run's prediction (phase 17).  Phases,
 each printing its results on lines of its own; any failure raises and the
 script exits non-zero:
 
@@ -240,7 +241,28 @@ script exits non-zero:
     ``_expert_ffn`` with the route's capacity, ``_combine``) within
     NOISE_FLOOR relative L2; ``pipeline_apply`` over 4 stages, 8 of
     qwen1.5-4B's layers (2 a stage), 8 microbatches of B=1, S=512,
-    against the same layers in sequence on one card, both timed.
+    against the same layers in sequence on one card, both timed; data
+    parallelism (``dp_rank``): a 2-layer qwen3-moe train step in fp32 on
+    a (2, 2) ("data", "model") mesh (the batch's rows over `data`, the
+    experts over `model`), every rank's gathered parameters bitwise
+    alike, held to rank 0's step on the whole batch on its card alone in
+    two microbatches, the ranks' rows (DP_ATOL, DP_LOSS_RTOL).
+17. One production rank (``phase_dryrun``): ``launch.dryrun``'s
+    prediction of rank 0 of the 16x16 mesh for each candidate cell in
+    turn (the prefill_32k cells, then train_4k, then qwen3-moe x
+    decode_32k), and the first flash cell and the gmm cell whose
+    predicted executed peak is under DRYRUN_LIMIT run on the card, at
+    full width and depth, at the rank's shard shapes, on a fake process
+    group of 256 ranks (``dryrun_rank``): a first call under the dry
+    run's FLOP counter and ``StepRecorder(fill=True)`` (each collective's
+    output written as if every rank held this one's tensor), whose
+    FLOPs and collectives must equal the prediction's and whose every
+    flash and gmm launch has its first and last DRYRUN_ROWS rows held
+    to the plain version; each kernel's first launch timed alone; a
+    warm call (its collectives cost nothing) timed by CUDA events
+    against the roofline's ``bound_s``, its peak against the predicted
+    executed peak; one ``{"dryrun_rank": ...}`` line a cell, with the
+    card's name and power limit.
 
 The line third from the end is the training JSON (phases 14-15), the
 line before the last the kernels' JSON (nine kernels; flash and gmm once
@@ -2859,6 +2881,20 @@ EP_SCORE_BS = (2, 2048)
 EP_CHECK_LAYERS, EP_CHECK_BS = 2, (2, 512)
 PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_BS = 4, 8, 8, (1, 512)
 EP_TIMEOUT = 480.0
+#: data parallelism on four cards: a DP_LAYERS-deep qwen3-moe train step
+#: at full width in fp32 over a (2, 2) ("data", "model") mesh on DP_BS
+#: tokens, against one card's step on the whole batch in two
+#: microbatches, the `data` ranks' rows (every row holds as many labels,
+#: so that is the whole batch's mean): the router's matmul then has the
+#: same rows on both sides, so no top-k choice flips on a rounding (in a
+#: first run against the undivided batch, a parameter differed by
+#: 2.56e-5); the capacity factor holds every token (the one card's
+#: dense route drops none); tests/test_torch_dp.py's optimizer and
+#: parameter tolerance
+DP_LAYERS, DP_BS = 2, (4, 256)
+DP_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=4, eps=1e-3)
+DP_ATOL, DP_LOSS_RTOL = 1e-5, 1e-5
+DP_TIMEOUT = 180.0
 
 
 def decoder_layer_fn(cfg, S: int, dev):
@@ -3235,6 +3271,85 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
     return res
 
 
+def dp_rank(rank: int, world: int, dev, seed: int) -> dict:
+    """Phase 16's data-parallel check, one of four ranks (``spawn_ranks``,
+    NCCL, one card a rank; ranks of their own, after ``ep_rank``'s): the
+    batch's rows split over `data`, the experts over `model` (EP); every
+    rank's gathered parameters bitwise alike; rank 0 runs the same step
+    on the whole batch on its card alone (the dense route, the `data`
+    ranks' rows as two microbatches: DP_LAYERS) and holds loss and
+    parameters to it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (axes_tree, gather_params, init_params,
+                                    param_specs, shard_params)
+    from repro_torch.models.moe import moe_pspecs, moe_route
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.sharding import MeshPolicy, param_pspecs
+    from repro_torch.train import OptConfig, adamw_init, train_step_fn
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    base = get_config("qwen3_moe_30b_a3b")
+    cfg = base.derive(n_layers=DP_LAYERS, dtype="float32",
+                      capacity_factor=base.n_experts / base.experts_per_token)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    full = init_params(param_specs(cfg), gen, device=dev)
+    B, S = DP_BS
+    rng = np.random.default_rng(seed + 19)
+    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = np.roll(tok, -1, axis=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tok, "labels": labels}
+    pspecs = moe_pspecs(axes_tree(param_specs(cfg)), cfg, mesh)
+    p = shard_params(full, pspecs, mesh, dev)
+    rows = shard_params(batch, param_pspecs(
+        {"tokens": ("batch", None), "labels": ("batch", None)},
+        MeshPolicy(), mesh), mesh, dev)
+    opt = OptConfig(**DP_OPT)
+    log(f"phase16 dp rank {rank}: parameters and rows on {dev}")
+    (_, _, loss), t_dp = timed(lambda: train_step_fn(
+        p, adamw_init(p), rows, cfg=cfg, policy=MeshPolicy(), mesh=mesh,
+        opt=opt, use_kernels=True, device=dev))
+    log(f"phase16 dp rank {rank}: step done in {t_dp:.3f} s")
+    got = gather_params(p, pspecs, mesh)
+    del p
+    alike = all(_same_on_every_rank(t) for t in tree_leaves(got)) and \
+        _same_on_every_rank(loss)
+    if not alike:
+        raise AssertionError("DP: the ranks' parameters or losses differ")
+    res = {"mesh": [2, 2], "route": moe_route(cfg, mesh), "layers":
+           DP_LAYERS, "B,S": [B, S], "step_s": t_dp, "loss": float(loss),
+           "bitwise_alike_across_ranks": True}
+    if rank == 0:
+        one_loss = train_step_fn(full, adamw_init(full), batch, cfg=cfg,
+                                 policy=MeshPolicy(), mesh=None, opt=opt,
+                                 microbatches=2, use_kernels=True,
+                                 device=dev)[2]
+        errs = {k: float((a - b).abs().max()) for k, a, b in zip(
+            leaf_paths(got), tree_leaves(got), tree_leaves(full))}
+        worst = max(errs, key=errs.get)
+        res.update(one_card_loss=float(one_loss),
+                   params_max_abs=errs[worst], worst_leaf=worst,
+                   loss_rel=abs(float(loss) / float(one_loss) - 1),
+                   tolerance={"params_atol": DP_ATOL,
+                              "loss_rtol": DP_LOSS_RTOL})
+        log(f"phase16 dp rank 0 against one card: {json.dumps(res)}")
+        if errs[worst] > DP_ATOL or res["loss_rel"] > DP_LOSS_RTOL:
+            raise AssertionError(f"DP vs one card: {res}")
+    dist.barrier()
+    return res
+
+
+def spawn_dp(seed: int) -> dict:
+    """``dp_rank`` on EP_RANKS spawned ranks; rank 0's result."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory() as d:
+        return spawn_ranks(dp_rank, EP_RANKS, seed, store_dir=d,
+                           device_type="cuda", timeout=DP_TIMEOUT)[0]
+
+
 def phase_mesh4(seed: int) -> list:
     """Phase 16's four-card part, when EP_RANKS cards are visible: EP_RANKS
     ranks spawned (NCCL, one card each) run ``ep_rank``; returns gmm's EP
@@ -3259,6 +3374,7 @@ def phase_mesh4(seed: int) -> list:
         ranks, t = timed(lambda: spawn_ranks(
             ep_rank, EP_RANKS, seed, store_dir=d, device_type="cuda",
             timeout=EP_TIMEOUT))
+    dp, t_dp = timed(lambda: spawn_dp(seed))
     zero = ranks[0]
     log(f"phase16 qwen3_moe_30b_a3b, {zero['layers']} layers over "
         f"{EP_RANKS} cards "
@@ -3280,7 +3396,259 @@ def phase_mesh4(seed: int) -> list:
     log(f"phase16 pipeline: {json.dumps(zero['pipeline'])} "
         f"bubble_fraction={pipeline_bubble_fraction(PIPE_STAGES, PIPE_MICRO)}"
         f" (every rank: {[round(r['pipeline_s'], 4) for r in ranks]} s)")
+    log(f"phase16 data parallel: {json.dumps(dp)}; spawn to end "
+        f"wall_s={t_dp:.1f}")
     return [zero["gmm_row"]]
+
+
+# ---------------------------------------------------------------------------
+# phase 17: one production rank's step, the dry run's prediction against
+# the card
+# ---------------------------------------------------------------------------
+
+#: a cell runs on the card if the dry run's predicted executed peak of
+#: rank 0 is under this (the card holds 80 GB; the rest is room for the
+#: caching allocator and the launch checks)
+DRYRUN_LIMIT = 70e9
+#: the flash cell is the first of these whose prediction fits, the
+#: prefill cells first (a train_4k rank's 16 rows of 4,096 tokens hold
+#: the plain attention backward's S x S scores); the gmm cell is this one
+DRYRUN_FLASH_SHAPES = ("prefill_32k", "train_4k")
+DRYRUN_GMM_CELL = ("qwen3_moe_30b_a3b", "decode_32k")
+#: rows of each launch held to the plain version: the first and the last
+#: DRYRUN_ROWS query rows of every flash launch (the last see every key),
+#: the first and the last DRYRUN_ROWS rows of every expert of every gmm
+#: launch (each row of a product is independent)
+DRYRUN_ROWS = 128
+
+
+def flash_rows(q, k, v, r0: int, causal=True, window=None, softcap=None):
+    """``attention_ref``'s output rows ``r0:`` for queries ``q`` (those
+    rows only) against keys and values ``k``, ``v`` of positions
+    ``0 .. r0 + len(q) - 1``: the plain version's arithmetic, offset."""
+    import math
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd).float()
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    logits = logits / math.sqrt(hd)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(r0, r0 + Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+class RankWatch:
+    """Wraps the flash and gmm bindings for phase 17: keeps a copy of each
+    kernel's first call and holds every launch's first and last
+    DRYRUN_ROWS rows to the plain version on the same inputs (FLASH_TOL,
+    GMM_ATOL); a launch outside tolerance raises."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.moe_gmm import kernel as gk
+        self.first, self.checked = {}, {}
+        self._orig = [(fk, "flash_attention_fwd", fk.flash_attention_fwd),
+                      (gk, "gmm", gk.gmm)]
+        fk.flash_attention_fwd = self._wrap("flash_attention",
+                                            fk.flash_attention_fwd)
+        gk.gmm = self._wrap("gmm", gk.gmm)
+
+    def _pairs(self, name, got, args, kw):
+        from repro_torch.kernels.flash_attention import ref as fr
+        from repro_torch.kernels.moe_gmm import ref as gr
+        R = DRYRUN_ROWS
+        if name == "gmm":
+            x, w = args
+            for rows in (slice(0, R), slice(max(0, x.shape[1] - R), None)):
+                want = gr.gmm_ref(x[:, rows], w)
+                yield got[:, rows], want, gmm_tol(args, want)
+            return
+        q, k, v = args
+        S = q.shape[1]
+        r0 = max(0, S - R)
+        yield got[:, :R], fr.attention_ref(
+            q[:, :R], k[:, :R], v[:, :R], **kw), FLASH_TOL[q.dtype]
+        yield got[:, r0:], flash_rows(q[:, r0:], k, v, r0, **kw), \
+            FLASH_TOL[q.dtype]
+
+    def _wrap(self, name, real):
+        def watched(*args, **kw):
+            if name not in self.first:
+                self.first[name] = (tuple(a.clone() for a in args), kw)
+            got = real(*args, **kw)
+            n, err = self.checked.get(name, (0, 0.0))
+            for g, want, (atol, rtol) in self._pairs(name, got, args, kw):
+                torch.testing.assert_close(
+                    g.float(), want.float(), atol=atol, rtol=rtol,
+                    msg=lambda m: f"phase17 {name} launch {n}: {m}")
+                err = max(err, float((g.float() - want.float()).abs()
+                                     .max()))
+            self.checked[name] = (n + 1, err)
+            return got
+        return watched
+
+    def restore(self):
+        for mod, attr, real in self._orig:
+            setattr(mod, attr, real)
+
+
+def first_launch_times(first: dict) -> dict:
+    """Each kernel's first launch (RankWatch) timed alone: its device time,
+    bound and library call."""
+    out = {}
+    for name, (a, kw) in first.items():
+        mod, attr, _, work, _, lib_of, _ = model_kernels()[name]
+        kern = getattr(mod, attr)
+        lib = lib_of(a, kw)
+        b_ms, b_by, n_bytes, n_ops = work(*a, **kw)
+        out[name] = {
+            "shapes": [list(t.shape) for t in a], "bytes": n_bytes,
+            "operations": n_ops,
+            "ms": device_ms(lambda: kern(*a, **kw), reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if lib is None else device_ms(
+                lib, reps=5, warmup=1)}
+    return out
+
+
+def dryrun_cells() -> list:
+    """Phase 17's cells: the dry run's prediction of rank 0 (16x16 mesh)
+    for each candidate in turn, the first flash cell and the gmm cell
+    whose predicted executed peak is under DRYRUN_LIMIT."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.dryrun import run_cell
+    picked = []
+    for todo in ([(a, s) for s in DRYRUN_FLASH_SHAPES for a in ARCHS],
+                 [DRYRUN_GMM_CELL]):
+        for arch, shape in todo:
+            pred, t = timed(lambda: run_cell(arch, shape, multi_pod=False))
+            peak = pred["memory"]["executed_peak_bytes_per_device"]
+            log(f"phase17 prediction {arch} x {shape}: executed peak "
+                f"{peak} bytes ({'fits' if peak < DRYRUN_LIMIT else 'over'}"
+                f" {DRYRUN_LIMIT:.0f}) in {t:.1f} s")
+            if peak < DRYRUN_LIMIT:
+                if (arch, shape) not in [(p["arch"], p["shape"])
+                                         for p in picked]:
+                    picked.append(pred)
+                break
+        else:
+            raise AssertionError(f"phase17: no cell of {todo} fits")
+    return picked
+
+
+def dryrun_rank(pred: dict, cfg, seed: int, dev, smi: str) -> dict:
+    """Phase 17 for one cell: rank 0's step of ``pred`` (``run_cell``'s
+    result for ``cfg``) run for real on the card, on a fake process group
+    of 256 ranks, at the rank's shard shapes.  A first call, under the
+    dry run's FLOP counter and a ``StepRecorder(fill=True)`` (every
+    collective's output written as if each rank held this one's tensor),
+    with every flash and gmm launch held to its plain version: its
+    launches, FLOPs (equal to the prediction's) and collectives (equal
+    too).  Then each kernel's first launch timed alone, and a warm call
+    (the collectives write nothing there and take no time): its device
+    time by CUDA events against the roofline's bound, and its peak
+    against the predicted executed peak.  Returns the line's object."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import cell_policy
+    arch, shape = pred["arch"], pred["shape"]
+    with dryrun.fake_world(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        policy = cell_policy(cfg, shape)
+        args = dryrun.rank_inputs(cfg, shape, mesh, policy, device=dev,
+                                  seed=seed)
+        cache = args.get("cache")
+
+        def step():
+            if cache is not None:
+                args["cache"] = cache
+            return dryrun.rank_step(cfg, shape, args, mesh=mesh,
+                                    policy=policy, device=dev)
+
+        reset_launch_counts()
+        watch = RankWatch()
+        try:
+            with dryrun.flop_counter() as counter, \
+                    dryrun.StepRecorder(fill=True) as rec:
+                out, t_first = timed(step)
+        finally:
+            watch.restore()
+        launches = {k: n for k, n in launch_counts().items() if n}
+        first = out[-1] if pred["kind"] == "train" else out[0]
+        if not bool(torch.isfinite(first).all()):
+            raise AssertionError(f"phase17 {arch} x {shape}: not finite")
+        del out, first
+        flops = counter.get_total_flops()
+        want = pred["cost_raw"]
+        if flops != want["flops"] or rec.collectives != \
+                want["collectives_by_kind"]:
+            raise AssertionError(
+                f"phase17 {arch} x {shape}: counted {flops} FLOPs and "
+                f"{rec.collectives}, predicted {want['flops']} and "
+                f"{want['collectives_by_kind']}")
+        checked = dict(watch.checked)
+        for name in ("flash_attention", "gmm"):
+            if launches.get(name, 0) != checked.get(name, (0,))[0]:
+                raise AssertionError(f"phase17 {name}: {launches} launches,"
+                                     f" {checked} checked")
+        kernels = first_launch_times(watch.first)
+        del watch
+        # the warm call: the kernels' clones freed, no empty_cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step()
+        b.record()
+        b.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out, args, cache
+    warm_s = a.elapsed_time(b) / 1e3
+    mem, rl = pred["memory"], pred["roofline"]
+    predicted_peak = mem["executed_peak_bytes_per_device"]
+    torch.cuda.empty_cache()
+    return {"card": smi, "cell": f"{arch} x {shape}", "mesh": pred["mesh"],
+            "rank": 0, "layers": cfg.n_layers,
+            "predicted": {"memory": mem, "roofline": rl,
+                          "flops": want["flops"],
+                          "collectives_by_kind": want["collectives_by_kind"]},
+            "measured": {
+                "peak_bytes": peak, "predicted_peak_bytes": predicted_peak,
+                "peak_over_predicted": peak / predicted_peak,
+                "flops": flops, "flops_equal_to_prediction": True,
+                "first_call_s": t_first, "warm_step_s": warm_s,
+                "bound_s": rl["bound_s"], "bound_by": rl["dominant"],
+                "warm_over_bound": warm_s / rl["bound_s"],
+                "collectives_by_kind": rec.collectives,
+                "collective_calls": rec.calls, "launches": launches,
+                "checked": {k: {"launches": n, "max_abs_err": e}
+                            for k, (n, e) in checked.items()},
+                "kernels": kernels}}
+
+
+def phase_dryrun(seed: int, dev, smi: str) -> list:
+    """Phase 17: the cells dryrun_cells picks, each through dryrun_rank
+    at full width and depth; one ``{"dryrun_rank": ...}`` line each."""
+    from repro_torch.configs import get_config
+    lines = []
+    for pred in dryrun_cells():
+        res = dryrun_rank(pred, get_config(pred["arch"]), seed, dev, smi)
+        print(json.dumps({"dryrun_rank": res}), flush=True)
+        lines.append(res)
+    launched = {k for r in lines for k in r["measured"]["launches"]}
+    if not {"flash_attention", "gmm"} <= launched:
+        raise AssertionError(f"phase17 launched only {launched}")
+    return lines
 
 
 #: --scan-times: (kernel, case, dtype, shape, from a state): zamba2's
@@ -3893,13 +4261,18 @@ def main() -> int:
     t16 = time.perf_counter()
     phase_mesh(args.seed, dev)
     rows += phase_mesh4(args.seed)
+
+    # -- phase 17 ----------------------------------------------------------
+    t17 = time.perf_counter()
+    phase_dryrun(args.seed, dev, smi)
     t_end = time.perf_counter()
     log(f"phase5_s={t6 - t5:.1f} phase6_s={t7 - t6:.1f} "
         f"phase7_s={t8 - t7:.1f} phase8_s={t9 - t8:.1f} "
         f"phase9_s={t10 - t9:.1f} phase10_s={t11 - t10:.1f} "
         f"phase11_s={t12 - t11:.1f} phase12_s={t13 - t12:.1f} "
         f"phase13_s={t14 - t13:.1f} phase14_s={t15 - t14:.1f} "
-        f"phase15_s={t16 - t15:.1f} phase16_s={t_end - t16:.1f}")
+        f"phase15_s={t16 - t15:.1f} phase16_s={t17 - t16:.1f} "
+        f"phase17_s={t_end - t17:.1f}")
     log(f"total_s={t_end - t_start:.1f}")
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

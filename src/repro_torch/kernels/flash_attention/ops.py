@@ -14,7 +14,33 @@ from typing import Optional
 
 import torch
 
+from .. import count_as_plain
 from . import kernel, ref
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int],
+             softcap: Optional[float]) -> torch.Tensor:
+    """The forward as one dispatcher op: the kernel for CUDA tensors, the
+    plain version for CPU tensors; under ``FakeTensorMode`` the kernel's
+    output shape (``launch.dryrun`` traces a step without running it)."""
+    if q.is_cuda:
+        return kernel.flash_attention_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            causal=causal, window=window, softcap=softcap)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+
+
+@_forward.register_fake
+def _(q, k, v, causal, window, softcap):
+    return torch.empty_like(q)
+
+
+count_as_plain(torch.ops.repro_torch.flash_attention,
+               lambda q, k, v, causal, window, softcap: ref.attention_ref(
+                   q, k, v, causal=causal, window=window, softcap=softcap))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -22,12 +48,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
-        if q.is_cuda:
-            return kernel.flash_attention_fwd(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                causal=causal, window=window, softcap=softcap)
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
+        return _forward(q, k, v, causal, window, softcap)
 
     @staticmethod
     def backward(ctx, g):

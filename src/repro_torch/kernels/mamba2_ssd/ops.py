@@ -18,7 +18,35 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import count_as_plain
 from . import kernel, ref
+
+
+@torch.library.custom_op("repro_torch::ssd", mutates_args=())
+def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bc: torch.Tensor, Cc: torch.Tensor, h0: Optional[torch.Tensor],
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one dispatcher op: the kernel for CUDA tensors, the
+    plain version for CPU tensors; under ``FakeTensorMode`` the kernel's
+    output shapes."""
+    if x.is_cuda:
+        return kernel.ssd_fwd(
+            x.contiguous(), dt.float().contiguous(),
+            A.float().contiguous(), Bc.contiguous(), Cc.contiguous(),
+            h0=None if h0 is None else h0.float().contiguous(),
+            chunk=chunk)
+    return ref.ssd_ref(x, dt, A, Bc, Cc, h0=h0, chunk=chunk)
+
+
+@_forward.register_fake
+def _(x, dt, A, Bc, Cc, h0, chunk):
+    B, _, H, hd = x.shape
+    return torch.empty_like(x), x.new_empty((B, H, hd, Bc.shape[-1]),
+                                            dtype=torch.float32)
+
+
+count_as_plain(torch.ops.repro_torch.ssd, lambda x, dt, A, Bc, Cc, h0, chunk:
+               ref.ssd_ref(x, dt, A, Bc, Cc, h0=h0, chunk=chunk))
 
 
 class _SSD(torch.autograd.Function):
@@ -26,13 +54,7 @@ class _SSD(torch.autograd.Function):
     def forward(ctx, x, dt, A, Bc, Cc, h0, chunk):
         ctx.save_for_backward(x, dt, A, Bc, Cc, h0)
         ctx.chunk = chunk
-        if x.is_cuda:
-            return kernel.ssd_fwd(
-                x.contiguous(), dt.float().contiguous(),
-                A.float().contiguous(), Bc.contiguous(), Cc.contiguous(),
-                h0=None if h0 is None else h0.float().contiguous(),
-                chunk=chunk)
-        return ref.ssd_ref(x, dt, A, Bc, Cc, h0=h0, chunk=chunk)
+        return _forward(x, dt, A, Bc, Cc, h0, chunk)
 
     @staticmethod
     def backward(ctx, gy, gh):

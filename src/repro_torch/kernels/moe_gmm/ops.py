@@ -7,16 +7,33 @@ from __future__ import annotations
 
 import torch
 
+from .. import count_as_plain
 from . import kernel, ref
+
+
+@torch.library.custom_op("repro_torch::gmm", mutates_args=())
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward as one dispatcher op: the kernel for CUDA tensors, the
+    plain version for CPU tensors; under ``FakeTensorMode`` the kernel's
+    output shape."""
+    if x.is_cuda:
+        return kernel.gmm(x.contiguous(), w.contiguous())
+    return ref.gmm_ref(x, w)
+
+
+@_forward.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+count_as_plain(torch.ops.repro_torch.gmm, ref.gmm_ref)
 
 
 class _GMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        if x.is_cuda:
-            return kernel.gmm(x.contiguous(), w.contiguous())
-        return ref.gmm_ref(x, w)
+        return _forward(x, w)
 
     @staticmethod
     def backward(ctx, g):

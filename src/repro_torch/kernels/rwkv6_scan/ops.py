@@ -16,7 +16,34 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import count_as_plain
 from . import kernel, ref
+
+
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=())
+def _forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one dispatcher op: the kernel for CUDA tensors, the
+    plain version for CPU tensors; under ``FakeTensorMode`` the kernel's
+    output shapes."""
+    if r.is_cuda:
+        return kernel.wkv6_fwd(
+            r.contiguous(), k.contiguous(), v.contiguous(),
+            w.float().contiguous(), u.float().contiguous(),
+            s0=None if s0 is None else s0.contiguous(), chunk=chunk)
+    return ref.wkv6_ref(r, k, v, w, u, s0=s0, chunk=chunk)
+
+
+@_forward.register_fake
+def _(r, k, v, w, u, s0, chunk):
+    B, _, H, hd = r.shape
+    return torch.empty_like(r), r.new_empty((B, H, hd, hd),
+                                            dtype=torch.float32)
+
+
+count_as_plain(torch.ops.repro_torch.wkv6, lambda r, k, v, w, u, s0, chunk:
+               ref.wkv6_ref(r, k, v, w, u, s0=s0, chunk=chunk))
 
 
 class _WKV6(torch.autograd.Function):
@@ -24,12 +51,7 @@ class _WKV6(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, s0, chunk):
         ctx.save_for_backward(r, k, v, w, u, s0)
         ctx.chunk = chunk
-        if r.is_cuda:
-            return kernel.wkv6_fwd(
-                r.contiguous(), k.contiguous(), v.contiguous(),
-                w.float().contiguous(), u.float().contiguous(),
-                s0=None if s0 is None else s0.contiguous(), chunk=chunk)
-        return ref.wkv6_ref(r, k, v, w, u, s0=s0, chunk=chunk)
+        return _forward(r, k, v, w, u, s0, chunk)
 
     @staticmethod
     def backward(ctx, gy, gs):

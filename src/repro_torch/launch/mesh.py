@@ -13,7 +13,9 @@ from __future__ import annotations
 import math
 import multiprocessing
 import os
+import sys
 import time
+import traceback
 from datetime import timedelta
 from pathlib import Path
 from typing import Any, Callable, List, Sequence
@@ -88,9 +90,15 @@ def _rank_main(fn: Callable, rank: int, world: int, store: str,
                                 seconds=timeout))
     try:
         result = fn(rank, world, device, *args)
-        torch.save(result, f"{store}.rank{rank}")
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # the others may wait in a collective this rank will not join, and
+        # tearing the group down would wait with them: report and leave,
+        # so that spawn_ranks sees the exit code and kills the rest
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    torch.save(result, f"{store}.rank{rank}")
+    dist.destroy_process_group()
 
 
 def spawn_ranks(fn: Callable, world: int, *args: Any, store_dir: str,

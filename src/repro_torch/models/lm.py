@@ -534,16 +534,18 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
 # ===========================================================================
 
 
-def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], *,
-            cfg: ModelConfig, policy: MeshPolicy = MeshPolicy(),
-            mesh: Any = None, use_kernels: bool = False,
-            device: Union[str, torch.device, None] = None) -> torch.Tensor:
-    """Mean next-token NLL over the labels ``>= 0`` (the reference's
-    ``loss_fn``): fp32 logits, logsumexp about the detached max.  The
-    reference takes the gold logit as a one-hot sum, so that a vocab
-    sharded over a mesh needs no all-gather; on one card ``torch.gather``
-    of the clamped labels gives the same value (the one-hot sum adds one
-    logit to zeros) without two ``[B, S, V]`` temporaries."""
+def nll_terms(params: Dict[str, Any], batch: Dict[str, Any], *,
+              cfg: ModelConfig, policy: MeshPolicy = MeshPolicy(),
+              mesh: Any = None, use_kernels: bool = False,
+              device: Union[str, torch.device, None] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the next-token NLL over the labels ``>= 0``, their count),
+    fp32; :func:`loss_fn` is their ratio.  fp32 logits, logsumexp about
+    the detached max.  The reference takes the gold logit as a one-hot
+    sum, so that a vocab sharded over a mesh needs no all-gather; on one
+    card ``torch.gather`` of the clamped labels gives the same value (the
+    one-hot sum adds one logit to zeros) without two ``[B, S, V]``
+    temporaries."""
     logits, _ = forward(params, batch, cfg=cfg, policy=policy, mesh=mesh,
                         use_kernels=use_kernels, device=device)
     labels = batch["labels"]
@@ -555,4 +557,16 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], *,
     gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None]).squeeze(-1)
     mask = (labels >= 0).float()
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum(), mask.sum()
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], *,
+            cfg: ModelConfig, policy: MeshPolicy = MeshPolicy(),
+            mesh: Any = None, use_kernels: bool = False,
+            device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """Mean next-token NLL over the labels ``>= 0`` (the reference's
+    ``loss_fn``), from :func:`nll_terms`."""
+    total, count = nll_terms(params, batch, cfg=cfg, policy=policy,
+                             mesh=mesh, use_kernels=use_kernels,
+                             device=device)
+    return total / count.clamp_min(1.0)

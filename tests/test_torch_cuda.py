@@ -1176,3 +1176,32 @@ def test_one_rank_nccl_mesh_takes_the_dense_route_and_one_stage(cuda):
     finally:
         if owns:
             dist.destroy_process_group()
+
+
+def test_dry_run_rank_on_card_matches_its_prediction(cuda):
+    """``chip_smoke.py`` phase 17 at 2 layers of qwen3-moe: the dry run's
+    ``run_cell(fast=True)`` prediction of rank 0 on the fake group of 256
+    ranks, then that rank's prefill step (flash and gmm on the
+    expert-parallel route) and decode step (gmm) on the card: the FLOPs
+    counted over the real step equal the prediction's, every launch is
+    held to its plain version, and the measured peak is within a factor
+    of 2 of the predicted executed peak."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_config("qwen3_moe_30b_a3b").derive(n_layers=2)
+    for shape, launched in (("prefill_32k", {"flash_attention", "gmm"}),
+                            ("decode_32k", {"gmm"})):
+        pred = run_cell("qwen3_moe_30b_a3b", shape, multi_pod=False,
+                        fast=True, cfg_override=cfg)
+        res = smoke.dryrun_rank(pred, cfg, 0, cuda, "test")["measured"]
+        assert set(res["launches"]) == launched
+        assert res["flops"] == pred["cost_raw"]["flops"]
+        assert {k: c["launches"] for k, c in res["checked"].items()} == \
+            res["launches"]
+        assert 0.5 < res["peak_over_predicted"] < 2.0
