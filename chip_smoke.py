@@ -220,20 +220,25 @@ script exits non-zero:
 16. The multi-device layer.  On every card: a one-rank NCCL group and
     ``make_host_mesh()``; a full-width qwen3-moe layer (MESH1_MOE_BS) on
     that (1, 1) mesh takes the dense route, bitwise equal to
-    ``mesh=None`` with exactly 3 gmm launches; ``pipeline_apply`` with one
-    stage over 2 qwen1.5-4B layers, bitwise equal to the layers in
-    sequence; the trainer's smoke configuration, two steps on the mesh;
+    ``mesh=None`` with exactly 3 gmm launches; qwen1.5-4B at 4 layers on
+    that mesh under ``MeshPolicy(fsdp=True)`` (every shard whole), a
+    forward and a train step bitwise equal to ``mesh=None`` with the same
+    launches; ``pipeline_apply`` with one stage over 2 qwen1.5-4B layers,
+    bitwise equal to the layers in sequence; the trainer's smoke
+    configuration, two steps on the mesh;
     one ``phase16 {"ranks": 1, ...}`` line.  When EP_RANKS = 4 cards are
     visible (else a line says that part did not run and on how many
     cards): ``nvidia-smi topo -m``, then 4 ranks spawned by
     ``launch.mesh.spawn_ranks`` (NCCL, one card each, the kernel library
     built here first) run ``ep_rank``: qwen3_moe_30b_a3b at full width
-    and all 48 layers on a (1, 4) mesh through the expert-parallel route
-    (replicated leaves from the seed, alike on every rank by an
-    all-reduced checksum; each rank's 32 experts from (seed, rank)),
-    scoring at B=2, S=2048: exactly 48 flash, 144 gmm (every one on the
-    TMA route) and 96 all-to-alls a rank, the logits bitwise equal across
-    ranks, a warm forward's time, tokens/s, peak bytes and all-to-all
+    and all 48 layers on a (1, 4) mesh through the expert-parallel route,
+    each rank holding its shards as the port stores them (8 of 32 heads,
+    1 of 4 kv heads, a quarter of the vocabulary, 32 of 128 experts;
+    replicated leaves from the seed, alike on every rank by an
+    all-reduced checksum; the shards from (seed, rank)), scoring at B=2,
+    S=2048: exactly 48 flash, 144 gmm (every one on the TMA route) and 96
+    all-to-alls a rank, the logits (gathered over the vocabulary) bitwise
+    equal across ranks, a warm forward's time, tokens/s, peak bytes and all-to-all
     time, its device time by kernel, every launch held against its plain
     version, gmm's first call replayed for the JSON line; at 2 layers the
     4-rank output against one card computing the same function
@@ -246,13 +251,23 @@ script exits non-zero:
     a (2, 2) ("data", "model") mesh (the batch's rows over `data`, the
     experts over `model`), every rank's gathered parameters bitwise
     alike, held to rank 0's step on the whole batch on its card alone in
-    two microbatches, the ranks' rows (DP_ATOL, DP_LOSS_RTOL).
+    two microbatches, the ranks' rows (DP_ATOL, DP_LOSS_RTOL); tensor
+    parallelism and FSDP (``tp_rank``): qwen1.5-4B at full width and all
+    40 layers on a (2, 2) mesh under ``MeshPolicy(fsdp=True)``,
+    ``remat="full"``, B=2 (one row a `data` rank), S=2048, three steps,
+    each with exactly 80 flash launches on 10 heads a rank, finite losses,
+    the third at most the first plus 0.5, each step's time, tokens/s and
+    the peak a card, flash's first call replayed for the JSON line; at 4
+    layers in fp32 a step against rank 0's card alone on the whole batch
+    in two microbatches, the ranks' rows (DP_LOSS_RTOL; the parameters
+    DP_ATOL or NOISE_FACTOR times one card's own regrouping of the rows); ``ServeEngine`` on a (1, 4) mesh at 4 layers
+    (fp32), its tokens equal to one card's.
 17. One production rank (``phase_dryrun``): ``launch.dryrun``'s
-    prediction of rank 0 of the 16x16 mesh for each candidate cell in
-    turn (the prefill_32k cells, then train_4k, then qwen3-moe x
-    decode_32k), and the first flash cell and the gmm cell whose
-    predicted executed peak is under DRYRUN_LIMIT run on the card, at
-    full width and depth, at the rank's shard shapes, on a fake process
+    prediction of rank 0 of the 16x16 mesh for the prefill_32k cells
+    that were over DRYRUN_LIMIT while the port held every dense leaf
+    whole (DRYRUN_OVER_BEFORE, in ARCHS order; qwen2_vl_7b first), the
+    first that now fits, then qwen3-moe x prefill_32k and x decode_32k
+    (each must fit), run on the card, at full width and depth, at the rank's shard shapes, on a fake process
     group of 256 ranks (``dryrun_rank``): a first call under the dry
     run's FLOP counter and ``StepRecorder(fill=True)`` (each collective's
     output written as if every rank held this one's tensor), whose
@@ -2869,6 +2884,8 @@ def phase_train_paths(seed: int, dev) -> dict:
 #: a (1, 1) mesh; the one-stage pipeline: qwen1.5-4B's first layers, the
 #: microbatches and their (B, S); the trainer's steps
 MESH1_MOE_BS = (1, 512)
+#: qwen1.5-4B's depth and (B, S) on the (1, 1) mesh under FSDP's policy
+MESH1_DENSE = (4, (1, 512))
 MESH1_PIPE = (2, 4, (1, 512))
 MESH1_TRAIN_STEPS = 2
 #: on four cards (phase 16's second part): qwen3-moe at full width and all
@@ -2892,6 +2909,10 @@ EP_TIMEOUT = 480.0
 #: dense route drops none); tests/test_torch_dp.py's optimizer and
 #: parameter tolerance
 DP_LAYERS, DP_BS = 2, (4, 256)
+#: the data-parallel check's policy's rules: the experts over `model`,
+#: the dense leaves whole (heads, kv heads, MLP and vocabulary not split)
+DP_RULES = (("heads", None), ("kv_heads", None), ("mlp", None),
+            ("vocab", None))
 DP_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=4, eps=1e-3)
 DP_ATOL, DP_LOSS_RTOL = 1e-5, 1e-5
 DP_TIMEOUT = 180.0
@@ -2932,9 +2953,12 @@ def layers_in_sequence(layer_fn, layers, n: int, x):
 def phase_mesh(seed: int, dev) -> dict:
     """Phase 16, the part every run makes: a one-rank NCCL group and
     ``make_host_mesh()``; a full-width qwen3-moe layer on that (1, 1) mesh
-    (the dense route) against ``mesh=None``, bitwise; ``pipeline_apply``
-    with one stage against the layers in sequence, bitwise; the trainer's
-    smoke configuration, MESH1_TRAIN_STEPS steps on the mesh.  Returns the
+    (the dense route) against ``mesh=None``, bitwise; qwen1.5-4B at
+    MESH1_DENSE's depth on the (1, 1) mesh under ``MeshPolicy(fsdp=True)``
+    (its shards whole), a forward and a train step against ``mesh=None``,
+    bitwise and with the same launches; ``pipeline_apply`` with one stage
+    against the layers in sequence, bitwise; the trainer's smoke
+    configuration, MESH1_TRAIN_STEPS steps on the mesh.  Returns the
     line's results."""
     import io
     import tempfile
@@ -2981,6 +3005,7 @@ def phase_mesh(seed: int, dev) -> dict:
         res.update(moe_route=moe.moe_route(cfg, mesh),
                    moe_bitwise_equal_to_no_mesh=True)
         del p, x, on_mesh, bare
+        res["dense"] = one_rank_dense(mesh, gen, dev)
         # 2. the pipeline with one stage
         n, M, (B, S) = MESH1_PIPE
         q = get_config("qwen1_5_4b").derive(n_layers=n)
@@ -3024,6 +3049,48 @@ def phase_mesh(seed: int, dev) -> dict:
     return res
 
 
+def one_rank_dense(mesh, gen, dev) -> dict:
+    """qwen1.5-4B at MESH1_DENSE's depth on a (1, 1) mesh under
+    ``MeshPolicy(fsdp=True)`` against ``mesh=None``: the forward and one
+    train step bitwise equal, with the same launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_params, param_specs
+    from repro_torch.models import shard_params
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.sharding import MeshPolicy, storage_pspecs
+    from repro_torch.train import OptConfig, adamw_init, train_step_fn
+    n, (B, S) = MESH1_DENSE
+    cfg = get_config("qwen1_5_4b").derive(n_layers=n, remat="full")
+    policy = MeshPolicy(fsdp=True)
+    full = init_params(param_specs(cfg), gen, device=dev)
+    local = shard_params(full, storage_pspecs(param_specs(cfg), policy,
+                                              mesh), mesh, dev)
+    batch = _lm_batch(cfg, B, S, 16)
+    out, counts = [], []
+    for params, on in ((local, mesh), (full, None)):
+        reset_launch_counts()
+        logits = forward(params, {"tokens": batch["tokens"]}, cfg=cfg,
+                         policy=policy, mesh=on, use_kernels=True,
+                         device=dev)[0]
+        _, _, loss = train_step_fn(params, adamw_init(params), batch,
+                                   cfg=cfg, policy=policy, mesh=on,
+                                   opt=OptConfig(**TRAIN_OPT),
+                                   use_kernels=True, device=dev)
+        counts.append({k: v for k, v in launch_counts().items() if v})
+        out.append((logits, loss))
+    same = torch.equal(out[0][0], out[1][0]) and \
+        torch.equal(out[0][1], out[1][1]) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(local),
+                                              tree_leaves(full)))
+    if not same or counts[0] != counts[1]:
+        raise AssertionError(f"(1, 1) mesh != mesh=None: bitwise {same}, "
+                             f"launches {counts}")
+    return {"layers": n, "B,S": [B, S], "policy": "fsdp=True",
+            "forward_and_step_bitwise_equal_to_no_mesh": True,
+            "launches": counts[0]}
+
+
 class AllToAllWatch:
     """Counts the MoE route's all-to-alls and times each by CUDA events on
     the current stream (it waits for NCCL's)."""
@@ -3051,28 +3118,35 @@ class AllToAllWatch:
 
 
 def ep_params(cfg, seed: int, rank: int, mesh, dev):
-    """qwen3-moe's parameters for one rank of an EP mesh: the replicated
-    leaves from ``seed`` (alike on every rank), the rank's slices of the
-    experts from ``(seed, rank)``, drawn at their local shape."""
-    from repro_torch.models import axes_tree, init_params, param_specs
-    from repro_torch.models import moe
+    """qwen3-moe's parameters for one rank of an EP mesh, as the port
+    stores them (``storage_pspecs``: heads, kv heads, vocabulary, the
+    router's and the experts' expert axis over `model`): the replicated
+    leaves from ``seed`` (alike on every rank), the rank's slices from
+    ``(seed, rank)``, drawn at their local shape with the whole leaf's
+    standard deviation."""
+    from repro_torch.models import init_params, param_specs
     from repro_torch.models.params import ParamSpec
-    from repro_torch.parallel.sharding import mesh_shape
+    from repro_torch.parallel.sharding import (MeshPolicy, mesh_shape,
+                                               storage_pspecs)
     specs = param_specs(cfg)
-    pspecs = moe.moe_pspecs(axes_tree(specs), cfg, mesh)
+    pspecs = storage_pspecs(specs, MeshPolicy(), mesh)
     sizes = mesh_shape(mesh)
     rep = torch.Generator(device=dev).manual_seed(seed)
     own = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + 1
                                                   + rank)
+
+    def fan_in(shape):
+        return max(1, shape[-2] if len(shape) >= 2 else shape[-1])
 
     def make(s, ps):
         if isinstance(s, dict):
             return {k: make(v, ps[k]) for k, v in s.items()}
         if all(e is None for e in ps):
             return init_params(s, rep, device=dev)
+        # the whole leaf's law (init_params divides by the fan-in it sees)
         shape = tuple(n // sizes[e] if e else n for n, e in zip(s.shape, ps))
-        return init_params(ParamSpec(shape, s.axes, s.init, s.scale), own,
-                           device=dev)
+        return init_params(ParamSpec(shape, s.axes, s.init, s.scale * (
+            fan_in(shape) / fan_in(s.shape)) ** 0.5), own, device=dev)
 
     return make(specs, pspecs), pspecs
 
@@ -3120,7 +3194,7 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
     from repro_torch.models import forward, moe, shard_params
     from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.parallel.pipeline import pipeline_apply
-    from repro_torch.parallel.sharding import P
+    from repro_torch.parallel.sharding import P, all_gather_dim
     from repro_torch.launch.mesh import make_host_mesh
     res = {"rank": rank, "device": str(dev)}
     mesh = make_host_mesh()
@@ -3144,6 +3218,7 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
     def score():
+        # this rank's slice of the vocabulary
         return forward(params, {"tokens": tok}, cfg=cfg, mesh=mesh,
                        use_kernels=True, device=dev)[0]
 
@@ -3174,15 +3249,18 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
     finally:
         a2a = warm.restore()
     peak = torch.cuda.max_memory_allocated()
-    if a2a["count"] != 2 * L or lk.shape != (B, S, cfg.vocab_size) \
+    if a2a["count"] != 2 * L or \
+            lk.shape != (B, S, cfg.vocab_size // world) \
             or not bool(torch.isfinite(lk).all()):
         raise AssertionError(f"warm EP forward: {a2a['count']} all-to-alls,"
                              f" logits {tuple(lk.shape)}")
+    lk = all_gather_dim(lk, 2, mesh.get_group("model"))
     res.update(launches={k: n for k, n in launches.items() if n}, a2a=a2a,
                first_call_s=t_first,
                warm_s=t_warm, tokens_per_s=B * S / t_warm, peak_bytes=peak,
                total_bytes=torch.cuda.get_device_properties(
                    dev).total_memory)
+    # the vocabulary's slices gathered: every rank the same logits
     res["logits_bitwise_equal_across_ranks"] = _same_on_every_rank(lk)
     if not res["logits_bitwise_equal_across_ranks"]:
         raise AssertionError("EP logits differ across ranks")
@@ -3202,7 +3280,7 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
     log(f"phase16 rank {rank}: scoring forward timed and checked")
 
     # 2. EP_CHECK_LAYERS deep: the four ranks against one card
-    cfg2 = cfg.derive(n_layers=EP_CHECK_LAYERS)
+    cfg2 = cfg.derive(n_layers=EP_CHECK_LAYERS, dtype="float32")
     p2 = dict(params, layers=tree_map(
         lambda a: a[:EP_CHECK_LAYERS].clone(), params["layers"]))
     del params
@@ -3210,8 +3288,10 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
     B, S = EP_CHECK_BS
     tok2 = np.random.default_rng(seed + 17).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
-    ep_out = forward(p2, {"tokens": tok2}, cfg=cfg2, mesh=mesh,
-                     use_kernels=True, device=dev)[0]
+    ep_out = all_gather_dim(forward(p2, {"tokens": tok2}, cfg=cfg2,
+                                    mesh=mesh, use_kernels=True,
+                                    device=dev)[0], 2,
+                            mesh.get_group("model"))
     full = gather_params(p2, pspecs, mesh)
     del p2
     if rank == 0:
@@ -3274,21 +3354,25 @@ def ep_rank(rank: int, world: int, dev, seed: int) -> dict:
 def dp_rank(rank: int, world: int, dev, seed: int) -> dict:
     """Phase 16's data-parallel check, one of four ranks (``spawn_ranks``,
     NCCL, one card a rank; ranks of their own, after ``ep_rank``'s): the
-    batch's rows split over `data`, the experts over `model` (EP); every
-    rank's gathered parameters bitwise alike; rank 0 runs the same step
-    on the whole batch on its card alone (the dense route, the `data`
-    ranks' rows as two microbatches: DP_LAYERS) and holds loss and
-    parameters to it."""
+    batch's rows split over `data`, the experts over `model` (EP), the
+    dense leaves whole (DP_POLICY: tensor parallelism is ``tp_rank``'s,
+    whose rounding would flip near-tied top-k choices here); every rank's
+    gathered parameters bitwise alike; rank 0 runs the same step on the
+    whole batch on its card alone (the dense route, the `data` ranks'
+    rows as two microbatches: DP_LAYERS) and holds loss and parameters
+    to it."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
-    from repro_torch.models import (axes_tree, gather_params, init_params,
-                                    param_specs, shard_params)
-    from repro_torch.models.moe import moe_pspecs, moe_route
+    from repro_torch.models import (gather_params, init_params, param_specs,
+                                    shard_params)
+    from repro_torch.models.moe import moe_route
     from repro_torch.models.params import tree_leaves
-    from repro_torch.parallel.sharding import MeshPolicy, param_pspecs
+    from repro_torch.parallel.sharding import (MeshPolicy, param_pspecs,
+                                               storage_pspecs)
     from repro_torch.train import OptConfig, adamw_init, train_step_fn
+    DP_POLICY = MeshPolicy(rules=DP_RULES)
     mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
     base = get_config("qwen3_moe_30b_a3b")
     cfg = base.derive(n_layers=DP_LAYERS, dtype="float32",
@@ -3301,15 +3385,15 @@ def dp_rank(rank: int, world: int, dev, seed: int) -> dict:
     labels = np.roll(tok, -1, axis=1)
     labels[:, -1] = -1
     batch = {"tokens": tok, "labels": labels}
-    pspecs = moe_pspecs(axes_tree(param_specs(cfg)), cfg, mesh)
+    pspecs = storage_pspecs(param_specs(cfg), DP_POLICY, mesh)
     p = shard_params(full, pspecs, mesh, dev)
     rows = shard_params(batch, param_pspecs(
         {"tokens": ("batch", None), "labels": ("batch", None)},
-        MeshPolicy(), mesh), mesh, dev)
+        DP_POLICY, mesh), mesh, dev)
     opt = OptConfig(**DP_OPT)
     log(f"phase16 dp rank {rank}: parameters and rows on {dev}")
     (_, _, loss), t_dp = timed(lambda: train_step_fn(
-        p, adamw_init(p), rows, cfg=cfg, policy=MeshPolicy(), mesh=mesh,
+        p, adamw_init(p), rows, cfg=cfg, policy=DP_POLICY, mesh=mesh,
         opt=opt, use_kernels=True, device=dev))
     log(f"phase16 dp rank {rank}: step done in {t_dp:.3f} s")
     got = gather_params(p, pspecs, mesh)
@@ -3323,7 +3407,7 @@ def dp_rank(rank: int, world: int, dev, seed: int) -> dict:
            "bitwise_alike_across_ranks": True}
     if rank == 0:
         one_loss = train_step_fn(full, adamw_init(full), batch, cfg=cfg,
-                                 policy=MeshPolicy(), mesh=None, opt=opt,
+                                 policy=DP_POLICY, mesh=None, opt=opt,
                                  microbatches=2, use_kernels=True,
                                  device=dev)[2]
         errs = {k: float((a - b).abs().max()) for k, a, b in zip(
@@ -3341,6 +3425,233 @@ def dp_rank(rank: int, world: int, dev, seed: int) -> dict:
     return res
 
 
+#: tensor parallelism and FSDP on four cards: qwen1.5-4B at full width and
+#: TP_LAYERS layers on a (2, 2) ("data", "model") mesh, fsdp=True,
+#: remat "full", TP_BS tokens (one row a `data` rank), TP_STEPS steps of
+#: TRAIN_OPT; the depth of the fp32 step held to one card's on the same
+#: rows, one a microbatch (DP_OPT; DP_ATOL or the noise rule), and its
+#: (B, S); ServeEngine
+#: on a (1, 4) mesh at TP_SERVE_LAYERS layers (fp32) against one card's,
+#: the prompts
+TP_LAYERS, TP_BS, TP_STEPS = 40, (2, 2048), 3
+TP_CHECK_LAYERS, TP_CHECK_BS = 4, (2, 256)
+TP_SERVE_LAYERS, TP_PROMPTS, TP_NEW = 4, (12, 20), 6
+TP_TIMEOUT = 420.0
+
+
+def _rows(batch, policy, mesh, dev):
+    """This rank's rows of a batch of numpy arrays."""
+    from repro_torch.models import shard_params
+    from repro_torch.parallel.sharding import param_pspecs
+    axes = {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+    return shard_params(batch, param_pspecs(axes, policy, mesh), mesh, dev)
+
+
+def _lm_batch(cfg, B: int, S: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = np.roll(tok, -1, axis=1)
+    labels[:, -1] = -1
+    return {"tokens": tok, "labels": labels}
+
+
+def tp_rank(rank: int, world: int, dev, seed: int) -> dict:
+    """Phase 16's tensor-parallel and FSDP check, one of four ranks
+    (``spawn_ranks``, NCCL, one card a rank): qwen1.5-4B on a (2, 2) mesh
+    under ``MeshPolicy(fsdp=True)``, each rank holding its shards
+    (10 of 20 heads, half the MLP and vocabulary, half of every `embed`
+    dimension), TP_STEPS steps with exactly 80 flash launches each; at
+    TP_CHECK_LAYERS layers in fp32 one step against rank 0's card alone
+    on the whole batch, the `data` ranks' rows as microbatches;
+    ServeEngine on a (1, 4) mesh against one card's tokens.  Every check raises on the rank that fails it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import (gather_params, init_params, param_specs,
+                                    shard_params)
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.sharding import MeshPolicy, storage_pspecs
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import OptConfig, adamw_init, train_step_fn
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    policy = MeshPolicy(fsdp=True)
+    res = {"rank": rank, "mesh": [2, 2], "policy": "fsdp=True"}
+
+    # 1. qwen1.5-4B, TP_LAYERS layers, remat "full", TP_STEPS steps
+    cfg = get_config("qwen1_5_4b").derive(n_layers=TP_LAYERS, remat="full")
+    specs = param_specs(cfg)
+    pspecs = storage_pspecs(specs, policy, mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    full = init_params(specs, gen, device=dev)
+    p = shard_params(full, pspecs, mesh, dev)
+    del full
+    torch.cuda.empty_cache()
+    heads = p["layers"]["attn"]["wq"].shape[2]
+    if heads != cfg.n_heads // 2:
+        raise AssertionError(f"TP: {heads} local heads")
+    opt_state = adamw_init(p)
+    B, S = TP_BS
+    rows = _rows(_lm_batch(cfg, B, S, seed + 23), policy, mesh, dev)
+    opt = OptConfig(**TRAIN_OPT)
+    log(f"phase16 tp rank {rank}: shards on {dev}, {heads} local heads")
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = [], [], []
+    for i in range(TP_STEPS):
+        dist.barrier()
+        reset_launch_counts()
+        watch = KernelWatch() if i == 0 else None
+        try:
+            (_, _, loss), t = timed(lambda: train_step_fn(
+                p, opt_state, rows, cfg=cfg, policy=policy, mesh=mesh,
+                opt=opt, use_kernels=True, device=dev))
+        finally:
+            if watch is not None:
+                watch.restore()
+                rec = watch
+        launches.append({k: n for k, n in launch_counts().items() if n})
+        losses.append(float(loss))
+        times.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    if any(n != {"flash_attention": 2 * TP_LAYERS} for n in launches):
+        raise AssertionError(f"TP steps' launches: {launches}")
+    if not all(np.isfinite(losses)) or losses[-1] > losses[0] + 0.5:
+        raise AssertionError(f"TP losses: {losses}")
+    res.update(layers=TP_LAYERS, B_S=[B, S], local_heads=heads,
+               losses=losses, step_s=times, launches_each_step=launches[0],
+               ms_per_step=1e3 * times[-1],
+               tokens_per_s=B * S / times[-1], peak_bytes=peak,
+               params_on_card=sum(t.numel() for t in tree_leaves(p)),
+               total_bytes=torch.cuda.get_device_properties(
+                   dev).total_memory)
+    del p, opt_state, rows
+    torch.cuda.empty_cache()
+    if rank == 0:
+        res["flash_row"] = kernel_row(
+            "flash_attention", rec, launches[0], "phase16 tp",
+            f"qwen1.5-4B train step, {TP_LAYERS} layers, (2, 2) mesh with "
+            f"FSDP, {heads} heads a rank (phase 16)")
+    del rec
+    log(f"phase16 tp rank {rank}: {TP_STEPS} steps, losses {losses}")
+
+    # 2. TP_CHECK_LAYERS layers in fp32: the mesh against one card on the
+    # same rows, the `data` ranks' rows as microbatches there (as
+    # dp_rank).  Tensor parallelism changes the products' shapes, and so
+    # their rounding, which the random model's attention (logits of
+    # order 1e2) amplifies: the parameters are held to DP_ATOL or to
+    # NOISE_FACTOR times what one card's own regrouping of the rows (the
+    # whole batch in one microbatch) moves them, whichever is larger
+    cfg4 = get_config("qwen1_5_4b").derive(n_layers=TP_CHECK_LAYERS,
+                                           dtype="float32", remat="full")
+    specs4 = param_specs(cfg4)
+    pspecs4 = storage_pspecs(specs4, policy, mesh)
+
+    def fresh():
+        return init_params(specs4, torch.Generator(device=dev).manual_seed(
+            seed + 24), device=dev)
+
+    full = fresh()
+    p = shard_params(full, pspecs4, mesh, dev)
+    B, S = TP_CHECK_BS
+    batch = _lm_batch(cfg4, B, S, seed + 24)
+    opt = OptConfig(**DP_OPT)
+    _, _, loss = train_step_fn(p, adamw_init(p),
+                               _rows(batch, policy, mesh, dev), cfg=cfg4,
+                               policy=policy, mesh=mesh, opt=opt,
+                               use_kernels=True, device=dev)
+    got = gather_params(p, pspecs4, mesh)
+    del p
+    alike = all(_same_on_every_rank(t) for t in tree_leaves(got)) and \
+        _same_on_every_rank(loss)
+    if not alike:
+        raise AssertionError("TP: the ranks' parameters or losses differ")
+    if rank == 0:
+        one_loss = train_step_fn(full, adamw_init(full), batch, cfg=cfg4,
+                                 policy=policy, mesh=None, opt=opt,
+                                 microbatches=B, use_kernels=True,
+                                 device=dev)[2]
+        errs = {k: float((a - b).abs().max()) for k, a, b in zip(
+            leaf_paths(got), tree_leaves(got), tree_leaves(full))}
+        del got
+        whole = fresh()
+        train_step_fn(whole, adamw_init(whole), batch, cfg=cfg4,
+                      policy=policy, mesh=None, opt=opt, use_kernels=True,
+                      device=dev)
+        noise = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(whole), tree_leaves(full)))
+        del whole
+        worst = max(errs, key=errs.get)
+        atol = max(DP_ATOL, NOISE_FACTOR * noise)
+        res["vs_one_card"] = {
+            "layers": TP_CHECK_LAYERS, "B,S": [B, S], "dtype": "float32",
+            "one_card_microbatches": B,
+            "loss": float(loss), "one_card_loss": float(one_loss),
+            "loss_rel": abs(float(loss) / float(one_loss) - 1),
+            "params_max_abs": errs[worst], "worst_leaf": worst,
+            "one_card_regrouped_params_max_abs": noise,
+            "tolerance": {"params_atol": atol, "loss_rtol": DP_LOSS_RTOL}}
+        log(f"phase16 tp rank 0 against one card: "
+            f"{json.dumps(res['vs_one_card'])}")
+        if errs[worst] > atol or \
+                res["vs_one_card"]["loss_rel"] > DP_LOSS_RTOL:
+            raise AssertionError(f"TP vs one card: {res['vs_one_card']}")
+    else:
+        del got
+    del full
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # 3. ServeEngine on a (1, 4) mesh against one card
+    flat = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    cfgs = get_config("qwen1_5_4b").derive(n_layers=TP_SERVE_LAYERS,
+                                           dtype="float32")
+    specs_s = param_specs(cfgs)
+    full = init_params(specs_s, torch.Generator(device=dev).manual_seed(
+        seed + 25), device=dev)
+    prompts = [np.random.default_rng(seed + 25 + i).integers(
+        0, cfgs.vocab_size, n).astype(np.int32)
+        for i, n in enumerate(TP_PROMPTS)]
+
+    def serve(params, on):
+        eng = ServeEngine(cfgs, params, max_batch=len(prompts), max_seq=64,
+                          policy=MeshPolicy(), mesh=on, device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new=TP_NEW))
+        return {r.rid: r.generated for r in eng.run(max_iters=64)}
+
+    local = shard_params(full, storage_pspecs(specs_s, MeshPolicy(), flat),
+                         flat, dev)
+    tokens, t_serve = timed(lambda: serve(local, flat))
+    res["serve"] = {"mesh": [1, world], "layers": TP_SERVE_LAYERS,
+                    "local_heads": local["layers"]["attn"]["wq"].shape[2],
+                    "tokens": tokens, "wall_s": t_serve}
+    if rank == 0:
+        one = serve(full, None)
+        res["serve"]["one_card_tokens"] = one
+        if one != tokens:
+            raise AssertionError(f"TP engine: {tokens} != one card's {one}")
+    del full, local
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def spawn_tp(seed: int) -> dict:
+    """``tp_rank`` on EP_RANKS spawned ranks; rank 0's result, every
+    rank's step times and peaks."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(tp_rank, EP_RANKS, seed, store_dir=d,
+                            device_type="cuda", timeout=TP_TIMEOUT)
+    zero = dict(ranks[0])
+    zero["every_rank"] = [{"rank": r["rank"], "step_s": r["step_s"],
+                           "peak_bytes": r["peak_bytes"]} for r in ranks]
+    return zero
+
+
 def spawn_dp(seed: int) -> dict:
     """``dp_rank`` on EP_RANKS spawned ranks; rank 0's result."""
     import tempfile
@@ -3352,8 +3663,10 @@ def spawn_dp(seed: int) -> dict:
 
 def phase_mesh4(seed: int) -> list:
     """Phase 16's four-card part, when EP_RANKS cards are visible: EP_RANKS
-    ranks spawned (NCCL, one card each) run ``ep_rank``; returns gmm's EP
-    row for the kernels' line, or nothing when it did not run."""
+    ranks spawned (NCCL, one card each) run ``ep_rank``, then ``dp_rank``,
+    then ``tp_rank``, each on ranks of their own; returns gmm's EP row and
+    flash's row on the tensor-parallel FSDP training path for the
+    kernels' line, or nothing when it did not run."""
     import tempfile
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import spawn_ranks
@@ -3375,6 +3688,7 @@ def phase_mesh4(seed: int) -> list:
             ep_rank, EP_RANKS, seed, store_dir=d, device_type="cuda",
             timeout=EP_TIMEOUT))
     dp, t_dp = timed(lambda: spawn_dp(seed))
+    tp, t_tp = timed(lambda: spawn_tp(seed))
     zero = ranks[0]
     log(f"phase16 qwen3_moe_30b_a3b, {zero['layers']} layers over "
         f"{EP_RANKS} cards "
@@ -3398,7 +3712,9 @@ def phase_mesh4(seed: int) -> list:
         f" (every rank: {[round(r['pipeline_s'], 4) for r in ranks]} s)")
     log(f"phase16 data parallel: {json.dumps(dp)}; spawn to end "
         f"wall_s={t_dp:.1f}")
-    return [zero["gmm_row"]]
+    log(f"phase16 tensor parallel + FSDP: {json.dumps(tp)}; spawn to end "
+        f"wall_s={t_tp:.1f}")
+    return [zero["gmm_row"], tp["flash_row"]]
 
 
 # ---------------------------------------------------------------------------
@@ -3410,16 +3726,22 @@ def phase_mesh4(seed: int) -> list:
 #: rank 0 is under this (the card holds 80 GB; the rest is room for the
 #: caching allocator and the launch checks)
 DRYRUN_LIMIT = 70e9
-#: the flash cell is the first of these whose prediction fits, the
-#: prefill cells first (a train_4k rank's 16 rows of 4,096 tokens hold
-#: the plain attention backward's S x S scores); the gmm cell is this one
-DRYRUN_FLASH_SHAPES = ("prefill_32k", "train_4k")
-DRYRUN_GMM_CELL = ("qwen3_moe_30b_a3b", "decode_32k")
+#: the prefill_32k cells whose predicted peak was over DRYRUN_LIMIT while
+#: the port held every dense leaf whole (qwen3-moe's and rwkv6's fitted
+#: then); phase 17 runs the first of them, in ARCHS order, that fits
+#: under the stored layout, then the DRYRUN_KEPT cells
+DRYRUN_OVER_BEFORE = ("qwen2_vl_7b", "mixtral_8x22b", "command_r_plus_104b",
+                      "gemma3_12b", "nemotron_4_340b", "qwen1_5_4b",
+                      "zamba2_2_7b", "seamless_m4t_medium")
+DRYRUN_KEPT = (("qwen3_moe_30b_a3b", "prefill_32k"),
+               ("qwen3_moe_30b_a3b", "decode_32k"))
 #: rows of each launch held to the plain version: the first and the last
 #: DRYRUN_ROWS query rows of every flash launch (the last see every key),
 #: the first and the last DRYRUN_ROWS rows of every expert of every gmm
 #: launch (each row of a product is independent)
 DRYRUN_ROWS = 128
+#: the warm call's measured peak over the predicted executed peak
+PEAK_RATIO = (1.00, 1.10)
 
 
 def flash_rows(q, k, v, r0: int, causal=True, window=None, softcap=None):
@@ -3522,26 +3844,32 @@ def first_launch_times(first: dict) -> dict:
 
 def dryrun_cells() -> list:
     """Phase 17's cells: the dry run's prediction of rank 0 (16x16 mesh)
-    for each candidate in turn, the first flash cell and the gmm cell
-    whose predicted executed peak is under DRYRUN_LIMIT."""
+    for each prefill_32k cell of DRYRUN_OVER_BEFORE in ARCHS order, the
+    first whose predicted executed peak is under DRYRUN_LIMIT, then the
+    DRYRUN_KEPT cells (each must fit)."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.dryrun import run_cell
-    picked = []
-    for todo in ([(a, s) for s in DRYRUN_FLASH_SHAPES for a in ARCHS],
-                 [DRYRUN_GMM_CELL]):
-        for arch, shape in todo:
-            pred, t = timed(lambda: run_cell(arch, shape, multi_pod=False))
-            peak = pred["memory"]["executed_peak_bytes_per_device"]
-            log(f"phase17 prediction {arch} x {shape}: executed peak "
-                f"{peak} bytes ({'fits' if peak < DRYRUN_LIMIT else 'over'}"
-                f" {DRYRUN_LIMIT:.0f}) in {t:.1f} s")
-            if peak < DRYRUN_LIMIT:
-                if (arch, shape) not in [(p["arch"], p["shape"])
-                                         for p in picked]:
-                    picked.append(pred)
-                break
-        else:
-            raise AssertionError(f"phase17: no cell of {todo} fits")
+
+    def predict(arch, shape):
+        pred, t = timed(lambda: run_cell(arch, shape, multi_pod=False))
+        peak = pred["memory"]["executed_peak_bytes_per_device"]
+        log(f"phase17 prediction {arch} x {shape}: executed peak "
+            f"{peak} bytes ({'fits' if peak < DRYRUN_LIMIT else 'over'}"
+            f" {DRYRUN_LIMIT:.0f}) in {t:.1f} s")
+        return pred, peak < DRYRUN_LIMIT
+
+    for arch in (a for a in ARCHS if a in DRYRUN_OVER_BEFORE):
+        pred, fits = predict(arch, "prefill_32k")
+        if fits:
+            picked = [pred]
+            break
+    else:
+        raise AssertionError("phase17: no cell of DRYRUN_OVER_BEFORE fits")
+    for arch, shape in DRYRUN_KEPT:
+        pred, fits = predict(arch, shape)
+        if not fits:
+            raise AssertionError(f"phase17: {arch} x {shape} does not fit")
+        picked.append(pred)
     return picked
 
 
@@ -3602,14 +3930,17 @@ def dryrun_rank(pred: dict, cfg, seed: int, dev, smi: str) -> dict:
                                      f" {checked} checked")
         kernels = first_launch_times(watch.first)
         del watch
-        # the warm call: the kernels' clones freed, no empty_cache
+        # the warm call: the kernels' clones freed, no empty_cache; its
+        # collectives filled (gathered weights of values, not of whatever
+        # memory held), the rest untracked
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = step()
-        b.record()
+        with dryrun.StepRecorder(fill=True, track=False):
+            a.record()
+            out = step()
+            b.record()
         b.synchronize()
         peak = torch.cuda.max_memory_allocated()
         del out, args, cache
@@ -3638,12 +3969,18 @@ def dryrun_rank(pred: dict, cfg, seed: int, dev, smi: str) -> dict:
 
 def phase_dryrun(seed: int, dev, smi: str) -> list:
     """Phase 17: the cells dryrun_cells picks, each through dryrun_rank
-    at full width and depth; one ``{"dryrun_rank": ...}`` line each."""
+    at full width and depth, its measured peak within PEAK_RATIO of the
+    prediction; one ``{"dryrun_rank": ...}`` line each."""
     from repro_torch.configs import get_config
     lines = []
     for pred in dryrun_cells():
         res = dryrun_rank(pred, get_config(pred["arch"]), seed, dev, smi)
         print(json.dumps({"dryrun_rank": res}), flush=True)
+        ratio = res["measured"]["peak_over_predicted"]
+        if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+            raise AssertionError(f"phase17 {res['cell']}: measured peak "
+                                 f"{ratio:.4f}x the predicted, outside "
+                                 f"{PEAK_RATIO}")
         lines.append(res)
     launched = {k for r in lines for k in r["measured"]["launches"]}
     if not {"flash_attention", "gmm"} <= launched:

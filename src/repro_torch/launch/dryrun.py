@@ -16,10 +16,13 @@ or the 2x16x16 mesh (512 ranks, ``--multipod``):
      donates it), runs at full depth and width under ``FakeTensorMode``:
      tensors with shapes and no data, so nothing is computed and no card
      is touched, as the reference's dry run touches no TPU.  Its inputs
-     are this rank's shards as the port executes them
-     (:func:`rank_inputs`): every dense leaf replicated, the experts split
-     over `model` (``models.moe.moe_pspecs``), the batch's rows and the
-     cache's split over the batch's mesh axes.  The kernels
+     are this rank's shards as the port stores them (:func:`rank_inputs`,
+     ``parallel.sharding.storage_pspecs`` of the cell's policy: heads, kv
+     heads, MLP, vocabulary and experts over `model`, the `embed`
+     dimension over `data` under FSDP, the batch's rows and the cache's
+     over the batch's mesh axes), the reference's layout but for the
+     long_500k cells' caches, which the port keeps whole along the
+     sequence (no ``seq_shard``).  The kernels
      (flash attention, gmm, the SSD and WKV scans) are dispatcher ops
      (``kernels.*.ops``): under the trace each gives its output's shape,
      as the kernel allocates it, and nothing of its plain version runs.
@@ -36,8 +39,8 @@ or the 2x16x16 mesh (512 ranks, ``--multipod``):
          bytes that rank 0's traced step holds beyond its arguments (each
          storage counted from the op that makes it until it is freed);
        * ``executed_peak_bytes_per_device``: the port's arguments (its
-         layout: dense leaves replicated) plus that peak, what rank 0
-         needs on its card, against 80 GB.
+         storage layout, the reference's but for the long_500k caches)
+         plus that peak, what rank 0 needs on its card, against 80 GB.
   3. **cost**: ``torch.utils.flop_counter.FlopCounterMode`` over the
      traced step gives ``per_device["flops"]`` (``cost_raw["flops"]``
      with ``--fast``).  Eager tracing visits every layer, so the count is
@@ -53,9 +56,11 @@ or the 2x16x16 mesh (512 ranks, ``--multipod``):
   4. **collectives**: every collective that rank 0's step issues, by the
      reference's kind names (``all-reduce``, ``all-to-all``, ...), summed
      result bytes, counted once a call (:class:`StepRecorder`).  They are
-     the port's own: the MoE routes' all-to-alls (EP) and all-reduces
+     the port's own: the tensor-parallel all-reduces of attention, MLP,
+     embedding and loss, FSDP's all-gathers (forward and backward) and
+     reduce-scatters, the MoE routes' all-to-alls (EP) and all-reduces
      (TP), the data-parallel gradient all-reduce, the clip norm's
-     all-reduce; not GSPMD's.  Recorded as ``collectives_by_kind`` and,
+     all-reduces; not GSPMD's.  Recorded as ``collectives_by_kind`` and,
      weighted by :func:`weighted_collective_bytes`,
      ``collective_bytes_recorded``.
   5. **roofline**: compute from the counted FLOPs (``--fast``: the model
@@ -100,11 +105,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..configs import ARCHS, LONG_CONTEXT_OK, SHAPES, cells, get_config
 from ..models import init_params, param_specs
 from ..models.config import ModelConfig
-from ..models.moe import moe_pspecs
-from ..models.params import ParamSpec, axes_tree, tree_leaves
-from ..parallel.sharding import MeshPolicy, logical_to_pspec, mesh_shape
+from ..models.params import ParamSpec, tree_leaves, tree_map
+from ..parallel.sharding import (MeshPolicy, local_shape, logical_to_pspec,
+                                 mesh_shape, storage_pspecs)
 from ..train.optimizer import adamw_init
-from ..train.step import (_batch_groups, decode_step_fn, prefill_step_fn,
+from ..train.step import (_batch_axes, decode_step_fn, prefill_step_fn,
                           train_step_fn)
 from .analytic import analytic_bytes, analytic_collective_bytes
 from .inputs import batch_axes, batch_specs, cache_abstract, cell_policy
@@ -163,12 +168,17 @@ class StepRecorder(TorchDispatchMode):
     writes no collective's output) each collective's output is written as
     if every rank of its group held this rank's tensor: an all-reduce
     (sum) gives ``size`` times the tensor, an all-to-all this rank's own
-    chunk from every source; so every value the step computes is finite.
-    Any other collective then raises."""
+    chunk from every source, a reduce-scatter ``size`` times this rank's
+    own chunk; an all-gather this rank's shard in its own slot and, in
+    slot ``j``, the shard's elements rotated by ``j`` (gathered weights
+    that repeat a shard would tie every choice a router makes among them);
+    so every value the step computes is finite.  Any other collective
+    then raises.  ``track=False`` keeps only the collectives (their fill
+    and counts): no storages, no reads."""
 
-    def __init__(self, fill: bool = False) -> None:
+    def __init__(self, fill: bool = False, track: bool = True) -> None:
         super().__init__()
-        self.fill = fill
+        self.fill, self.track = fill, track
         self.collectives: Dict[str, float] = {}
         self.calls: Dict[str, int] = {}
         self.live = self.peak = 0
@@ -202,12 +212,14 @@ class StepRecorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if func.namespace == "c10d" and func._opname in _KINDS:
+            self._collective(func._opname, args)
+        if not self.track:
+            return out
         if not func.is_view and func._opname not in _SHAPE_ONLY and \
                 func.namespace != "prim":           # prim.device, ...
             self.read.update(t.untyped_storage()._cdata
                              for t in _tensors((args, kwargs)))
-        if func.namespace == "c10d" and func._opname in _KINDS:
-            self._collective(func._opname, args)
         for t in _tensors(out):
             self._track(t)
         return out
@@ -222,11 +234,19 @@ class StepRecorder(TorchDispatchMode):
             return
         import torch.distributed as dist
         group = dist.ProcessGroup.unbox(
-            args[2] if name == "alltoall_base_" else args[1])
+            args[1] if name == "allreduce_" else args[2])
         size, me = group.size(), group.rank()
         if name == "allreduce_":
             for t in result:
                 t.mul_(size)
+        elif name == "_allgather_base_":
+            out, inp = args[0], args[1].reshape(-1)
+            slots = out.view(size, -1)
+            for j in range(size):
+                slots[j].copy_(inp if j == me else inp.roll(j))
+        elif name == "_reduce_scatter_base_":
+            out, inp = args[0], args[1]
+            out.view(-1).copy_(inp.reshape(size, -1)[me]).mul_(size)
         elif name == "alltoall_base_":
             out, inp = args[0], args[1]
             if args[3] or args[4]:
@@ -315,48 +335,35 @@ def fake_world(world: int):
             dist.destroy_process_group()
 
 
-def _local(shape: tuple, axes: tuple, split: Dict[str, int]) -> tuple:
-    """``shape`` with each dimension whose logical axis is in ``split``
-    divided by its count (exactly: the port cuts only what divides)."""
-    out = []
-    for n, ax in zip(shape, axes):
-        k = split.get(ax, 1)
-        if n % k:
-            raise ValueError(f"dimension {n} ({ax}) does not split {k} ways")
-        out.append(n // k)
-    return tuple(out)
-
-
 def rank_inputs(cfg: ModelConfig, shape_name: str, mesh: Any,
                 policy: MeshPolicy, *, kv_len_override: Optional[int] = None,
                 device: Any = "cpu", seed: int = 0) -> Dict[str, Any]:
-    """This rank's arguments of the cell's step, as the port executes
-    them: ``params`` (fp32, every dense leaf whole, the experts' slices of
-    ``moe_pspecs``; ``init_params`` from ``seed``), ``opt_state``
-    (train), ``batch`` (its rows: tokens and labels uniform over the
-    vocabulary, embeddings normal), ``cache`` (zeros, its rows) and
-    ``index`` (decode: the cache's last position).  Under
-    ``FakeTensorMode`` every tensor is fake."""
+    """This rank's arguments of the cell's step, as the port stores them
+    (``storage_pspecs`` of ``policy``): ``params`` (fp32 shards drawn by
+    ``init_params`` from ``seed`` with the whole leaf's standard
+    deviation), ``opt_state`` (train: the moments as
+    their parameters), ``batch`` (its rows: tokens and labels uniform
+    over the vocabulary, embeddings normal), ``cache`` (zeros, as its
+    axes split it, the sequence whole) and ``index`` (decode: the cache's
+    last position, a Python int).  Under ``FakeTensorMode`` every tensor
+    is fake."""
     sh = SHAPES[shape_name]
     kind = sh["kind"]
-    sizes = mesh_shape(mesh)
-    specs = param_specs(cfg)
-    pspecs = moe_pspecs(axes_tree(specs), cfg, mesh)
 
-    def cut(s: ParamSpec, spec: tuple) -> ParamSpec:
-        shape = tuple(n // (sizes[e] if e else 1)
-                      for n, e in zip(s.shape, tuple(spec) + (None,) * (
-                          len(s.shape) - len(spec))))
-        return dataclasses.replace(s, shape=shape)
+    def fan_in(shape: tuple) -> int:
+        return max(1, shape[-2] if len(shape) >= 2 else shape[-1])
 
-    def walk(t: Any, p: Any) -> Any:
-        if isinstance(t, dict):
-            return {k: walk(v, p[k]) for k, v in t.items()}
-        return cut(t, p)
+    def local(s: ParamSpec, pol: MeshPolicy = policy) -> ParamSpec:
+        """The shard's spec, its law the whole leaf's (``init_params``
+        divides by the fan-in of the shape it draws)."""
+        shape = local_shape(s.shape, storage_pspecs(s, pol, mesh), mesh)
+        return dataclasses.replace(s, shape=shape, scale=s.scale * math.sqrt(
+            fan_in(shape) / fan_in(s.shape)))
 
     g = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(walk(specs, pspecs), g, device=device)
-    rows = {"batch": _batch_groups(policy, mesh)[1]}
+    params = init_params(tree_map(local, param_specs(cfg)), g,
+                         device=device)
+    rows = {"batch": _batch_axes(policy, mesh)[1]}
     batch = {}
     for name, meta in batch_specs(cfg, shape_name).items():
         shape = (meta.shape[0] // rows["batch"],) + tuple(meta.shape[1:])
@@ -376,10 +383,10 @@ def rank_inputs(cfg: ModelConfig, shape_name: str, mesh: Any,
         c_abs, c_axes = cache_abstract(cfg, shape_name,
                                        kv_len=kv_len_override
                                        if kind == "decode" else None)
-        out["cache"] = {k: torch.zeros(_local(tuple(v.shape), c_axes[k],
-                                              rows),
-                                       dtype=v.dtype, device=device)
-                        for k, v in c_abs.items()}
+        whole_seq = policy.with_rules(kv_seq=None)
+        out["cache"] = {k: torch.zeros(local(ParamSpec(
+            tuple(v.shape), c_axes[k]), whole_seq).shape, dtype=v.dtype,
+            device=device) for k, v in c_abs.items()}
         if kind == "decode":
             out["index"] = (kv_len_override or sh["seq"]) - 1
     return out

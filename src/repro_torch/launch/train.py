@@ -7,10 +7,13 @@ Wires together: config registry -> data pipeline (registry-backed shards)
 Runs on the card unless ``--device cpu`` is given (without CUDA it
 raises), on ``make_host_mesh()`` as the reference does: under a
 multi-process launch (``torchrun``, ``WORLD_SIZE`` set) one rank a card
-(``LOCAL_RANK``), the MoE experts split over the ranks
-(``models.moe.moe_pspecs``), every rank on the same batch; otherwise one
-rank.  Rank 0 prints and writes the checkpoints (the experts gathered
-from every rank first); every rank resumes from them.
+(``LOCAL_RANK``), every rank on the same batch, each holding its shards
+of the parameters and moments as ``parallel.sharding.storage_pspecs``
+lays them out under the reference's policy (heads, MLP, vocabulary and
+experts over the `model` ranks where they divide); otherwise one rank.
+Rank 0 prints and writes the checkpoints (the whole tree, gathered from
+every rank first: the files are the reference's); every rank resumes
+from them.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1_5_4b \\
       --smoke --steps 20 --batch 8 --seq 64
@@ -36,10 +39,9 @@ from ..configs import ARCHS, get_config, get_smoke_config
 from ..data import DataPipeline, synthetic_batch
 from ..device import resolve_device
 from ..metaplane import MetadataPlane
-from ..models import (axes_tree, gather_params, init_params, param_specs,
-                      shard_params)
-from ..models.moe import moe_pspecs
-from ..parallel.sharding import MeshPolicy, mesh_shape
+from ..models import gather_params, init_params, param_specs, shard_params
+from ..parallel.sharding import (MeshPolicy, mesh_shape, opt_pspecs,
+                                 storage_pspecs)
 from ..runtime import FleetRuntime
 from ..train.optimizer import OptConfig, adamw_init
 from ..train.step import make_train_step
@@ -90,6 +92,11 @@ def _train(args: argparse.Namespace, dev: torch.device) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     mesh = make_host_mesh(dev.type)
     policy = MeshPolicy()
+    M = mesh_shape(mesh)["model"]
+    if cfg.n_experts and cfg.n_experts % M:
+        # the experts do not divide the ranks: the tensor-parallel route
+        # splits each expert's hidden units (launch.inputs.cell_policy)
+        policy = policy.with_rules(experts=None, expert_mlp="model")
     job = f"{args.arch}-train"
     lead = dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
@@ -101,8 +108,8 @@ def _train(args: argparse.Namespace, dev: torch.device) -> None:
     ckpt = CheckpointManager(args.ckpt_dir, plane, job, keep=2, device=dev)
 
     specs = param_specs(cfg)
-    pspecs = moe_pspecs(axes_tree(specs), cfg, mesh)
-    opt_pspecs = {"mu": pspecs, "nu": pspecs, "step": ()}
+    pspecs = storage_pspecs(specs, policy, mesh)
+    o_pspecs = opt_pspecs(pspecs)
     params = _init_sharded(specs, pspecs,
                            torch.Generator(device=dev).manual_seed(0), mesh,
                            dev)
@@ -114,7 +121,7 @@ def _train(args: argparse.Namespace, dev: torch.device) -> None:
         if restored is not None:
             start, p_full, o_full = restored
             params = shard_params(p_full, pspecs, mesh, dev)
-            opt_state = shard_params(o_full, opt_pspecs, mesh, dev)
+            opt_state = shard_params(o_full, o_pspecs, mesh, dev)
             del p_full, o_full
             say(f"resumed from step {start}")
 
@@ -153,9 +160,9 @@ def _train(args: argparse.Namespace, dev: torch.device) -> None:
             say(f"step {step:4d} loss {float(loss):8.4f} "
                 f"({time.time() - t0:5.1f}s)")
         if (step + 1) % args.ckpt_every == 0:
-            # every rank takes part in gathering the experts' slices
+            # every rank takes part in gathering the shards
             full = (gather_params(params, pspecs, mesh),
-                    gather_params(opt_state, opt_pspecs, mesh))
+                    gather_params(opt_state, o_pspecs, mesh))
             if lead:
                 ckpt.save(step + 1, *full)
             del full

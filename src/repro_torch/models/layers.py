@@ -3,7 +3,19 @@ decode, sliding-window and local:global variants), MLP variants.
 
 The JAX package's ``repro.models.layers`` in PyTorch, with its names and
 parameter layout (``wq [d, nh, hd]``, ``wo [nh, hd, d]``, ...), so its
-parameters carry across as they are.  All functions are pure: the KV cache
+parameters carry across as they are.
+
+On a mesh each block computes on this rank's shards, as
+``parallel.sharding.storage_pspecs`` stores them (the `data` dimension
+already gathered by the caller, ``models.lm``); a block reads from its
+leaves' shapes which of them split over `model`.  Attention splits its
+query heads (and its kv heads where those split; else each rank takes the
+kv heads its query heads read), the MLP its hidden units (column- then
+row-parallel), the embedding and the head the vocabulary; the partial
+sums are added by one all-reduce where the reference constrains to
+``act_embed`` (``reduce_over``), and every replicated input of a split
+region enters through ``from_replicated``.  Without a mesh, or where
+nothing splits, the code is what it was: the same operations.  All functions are pure: the KV cache
 comes back as new tensors, as in the reference.  Where the reference asks
 for an fp32 result from bf16 operands (``preferred_element_type``), the
 operands are upcast to fp32 first: their products are exact in fp32, so
@@ -17,7 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import MeshPolicy, shard_constraint
+from ..parallel.sharding import (MeshPolicy, from_replicated, model_part,
+                                 reduce_over, shard_constraint)
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -231,6 +244,56 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, start: int
     return out
 
 
+def kv_selection(n_heads: int, n_kv: int, heads_here: int, rank: int
+                 ) -> Tuple[int, int, Optional[list]]:
+    """The kv heads that query heads ``rank * heads_here`` on read, where
+    the query heads split over `model` and the kv heads do not:
+    ``(lo, hi, index)``.  The heads ``lo:hi`` are taken; ``index`` is None
+    where query head ``h`` then reads kv head ``h // (heads_here /
+    (hi - lo))`` (the kernels' grouping), else each query head's kv head
+    in order (the kv heads repeated, one a query head)."""
+    G = n_heads // n_kv
+    first = rank * heads_here
+    lo, hi = first // G, (first + heads_here - 1) // G + 1
+    own = [(first + h) // G - lo for h in range(heads_here)]
+    n = hi - lo
+    if heads_here % n == 0 and all(own[h] == h // (heads_here // n)
+                                   for h in range(heads_here)):
+        return lo, hi, None
+    return lo, hi, own
+
+
+def _tp_heads(p: Dict[str, Any], cfg: ModelConfig, mesh: Any, keep_all_kv:
+              bool) -> Tuple[Any, Dict[str, Any], Any]:
+    """This rank's attention parameters on a mesh: ``(group, p, pick)``.
+    ``group`` is the `model` group where the query heads split (else
+    None: the block runs whole on every rank); ``p`` the leaves to use,
+    the kv projections sliced to the heads this rank reads where they are
+    replicated (whole with ``keep_all_kv``: a cache holds every kv head);
+    ``pick`` maps keys or values of those leaves to the heads the
+    attention reads (None: as they are)."""
+    group, _, rank = model_part(mesh)
+    nh = p["wq"].shape[1]
+    if group is None or nh == cfg.n_heads:
+        return None, p, None
+    if p["wk"].shape[1] < cfg.n_kv_heads:            # kv heads split too
+        return group, p, None
+    lo, hi, index = kv_selection(cfg.n_heads, cfg.n_kv_heads, nh, rank)
+    p = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            # read inside the region: the gradient is summed over it
+            w = from_replicated(p[name], group)
+            axis = 1 if name[0] == "w" else 0
+            p[name] = w if keep_all_kv else w.narrow(axis, lo, hi - lo)
+
+    def pick(t: torch.Tensor) -> torch.Tensor:
+        if keep_all_kv:
+            t = t[:, :, lo:hi]
+        return t if index is None else t[:, :, index]
+    return group, p, pick
+
+
 def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                     positions: torch.Tensor, policy: MeshPolicy,
                     mesh: Any = None,
@@ -249,9 +312,15 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
     goes through ``kernels.flash_attention.ops.flash_attention`` (the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors).  As in the
     reference, only a literal ``is_global is True`` drops the window there.
+
+    On a mesh whose `model` axis splits the query heads, the block runs
+    this rank's heads (:func:`_tp_heads`) and adds the ranks' outputs; the
+    cache holds the kv heads as its axes split them.
     """
     B, Sq, d = x.shape
     dt = x.dtype
+    group, p, pick = _tp_heads(p, cfg, mesh, keep_all_kv=cache is not None)
+    x = from_replicated(x, group)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
@@ -268,6 +337,7 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
     q = shard_constraint(q, ("batch", "seq", "heads", None), policy, mesh)
     k = shard_constraint(k, ("batch", "kv_seq", "kv_heads", None), policy,
                          mesh)
+    read = pick or (lambda t: t)
 
     window = cfg.sliding_window
     new_cache = cache
@@ -285,19 +355,20 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                                        device=x.device),
                             kpos > idx - (window or Sk))
         mask = (valid & wmask)[:, None, :]               # [1,1,Sk]
-        out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype),
+        out = _sdpa(q, read(ck).to(q.dtype), read(cv).to(q.dtype),
                     mask.expand(B, Sq, Sk), cfg.logit_softcap)
     else:
+        ka, va = read(k), read(v)
         if use_kernels:
             from ..kernels.flash_attention import ops as fa_ops
             out = fa_ops.flash_attention(
-                q, k, v, causal=True,
+                q, ka, va, causal=True,
                 window=None if (is_global is True) else window,
                 softcap=cfg.logit_softcap)
         elif Sq >= 1024:
             # blocked online-softmax: never materializes [Sq,Sk] and skips
             # out-of-window blocks for static-local layers
-            out = blocked_attention(q, k, v, is_global=is_global,
+            out = blocked_attention(q, ka, va, is_global=is_global,
                                     window=window,
                                     softcap=cfg.logit_softcap,
                                     block_q=cfg.attn_block_q,
@@ -308,7 +379,9 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
             local = causal_mask(Sq, Sq, window=window, device=x.device)
             mask = torch.where(torch.as_tensor(is_global, device=x.device),
                                full, local)
-            out = _sdpa(q, k, v, mask.expand(B, Sq, Sq), cfg.logit_softcap)
+            out = _sdpa(q, ka, va, mask.expand(B, Sq, Sq),
+                        cfg.logit_softcap)
+        del ka, va
         if cache is not None:                            # prefill fills cache
             ck = torch.zeros_like(cache["k"])
             cv = torch.zeros_like(cache["v"])
@@ -316,6 +389,7 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
             cv[:, :Sq] = v
             new_cache = {"k": ck, "v": cv}
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+    y = reduce_over(y, group)
     y = shard_constraint(y, ("batch", "seq", "act_embed"), policy, mesh)
     return y, new_cache
 
@@ -338,7 +412,12 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None
 
 def mlp_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
               policy: MeshPolicy, mesh: Any = None) -> torch.Tensor:
+    """On a mesh that splits the hidden units (``wi``'s columns) over
+    `model`: column-parallel in, row-parallel out, the ranks' outputs
+    added."""
     dt = x.dtype
+    group = model_part(mesh)[0] if p["wi"].shape[-1] < cfg.d_ff else None
+    x = from_replicated(x, group)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
     elif cfg.mlp_type == "relu2":                     # nemotron squared-ReLU
@@ -347,7 +426,7 @@ def mlp_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")
     h = shard_constraint(h, ("batch", "seq", "mlp"), policy, mesh)
-    y = h @ p["wo"].to(dt)
+    y = reduce_over(h @ p["wo"].to(dt), group)
     return shard_constraint(y, ("batch", "seq", "act_embed"), policy, mesh)
 
 
@@ -366,18 +445,38 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed(p: Dict[str, Any], tokens: torch.Tensor, *, policy: MeshPolicy,
-          mesh: Any = None, dtype: torch.dtype = torch.bfloat16
-          ) -> torch.Tensor:
-    # gather then cast: the same values as casting the table first
-    x = p["tok"][tokens.long()].to(dtype)
+          mesh: Any = None, dtype: torch.dtype = torch.bfloat16,
+          vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Token embeddings.  Where the table holds fewer rows than
+    ``vocab_size`` (its vocabulary split over `model`), each rank looks up
+    the tokens of its rows, the others as zeros, and the ranks' rows are
+    added."""
+    tok = p["tok"]
+    V = tok.shape[0]
+    if vocab_size is None or V == vocab_size:
+        # gather then cast: the same values as casting the table first
+        x = tok[tokens.long()].to(dtype)
+    else:
+        group, _, rank = model_part(mesh)
+        ids = tokens.long() - rank * V
+        held = (ids >= 0) & (ids < V)
+        x = torch.where(held[..., None], tok[ids.clamp(0, V - 1)],
+                        torch.zeros((), dtype=tok.dtype, device=tok.device))
+        x = reduce_over(x.to(dtype), group)
     return shard_constraint(x, ("batch", "seq", "act_embed"), policy, mesh)
 
 
 def lm_head(p: Dict[str, Any], x: torch.Tensor, *, policy: MeshPolicy,
-            mesh: Any = None) -> torch.Tensor:
+            mesh: Any = None, vocab_size: Optional[int] = None
+            ) -> torch.Tensor:
+    """fp32 logits; where the head holds fewer columns than
+    ``vocab_size``, this rank's slice of the vocabulary (the reference's
+    ``("batch", "seq", "vocab")`` layout)."""
     w = p.get("head")
     if w is None:
         w = p["tok"].t()
+    if vocab_size is not None and w.shape[1] < vocab_size:
+        x = from_replicated(x, model_part(mesh)[0])
     # the reference's bf16 operands with an fp32 result
     logits = x.float() @ w.to(x.dtype).float()
     return shard_constraint(logits, ("batch", "seq", "vocab"), policy, mesh)

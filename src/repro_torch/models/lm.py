@@ -37,11 +37,16 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel.sharding import MeshPolicy, shard_constraint
+from ..parallel.sharding import (Gather, MeshPolicy, _names, batch_mesh_axes,
+                                 gather_tree, mesh_shape, model_part,
+                                 reduce_over,
+                                 regather_saved, shard_constraint,
+                                 storage_pspecs)
 from .config import ModelConfig
-from .layers import (_sdpa, apply_norm, apply_rope, attention_block,
-                     attn_specs, embed, embed_specs, lm_head, mlp_block,
-                     mlp_specs, norm_specs)
+from .layers import (_sdpa, _tp_heads, apply_norm, apply_rope,
+                     attention_block, attn_specs, embed, embed_specs,
+                     from_replicated, lm_head, mlp_block, mlp_specs,
+                     norm_specs)
 from .mamba2 import mamba2_block, mamba2_specs
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_map
@@ -86,6 +91,73 @@ def _stack(specs: Any, L: int) -> Any:
     """Prepend a stacked `layers` axis to every leaf spec."""
     return tree_map(lambda s: ParamSpec((L,) + s.shape, ("layers",) + s.axes,
                                         s.init, s.scale), specs)
+
+
+#: the stacked subtrees: their leaves carry a leading `layers` axis
+_STACKS = ("layers", "enc", "dec")
+
+
+def _whole_on_use(path: Tuple[str, ...], axes: Tuple[Any, ...]) -> bool:
+    """Leaves the port computes on whole though the reference splits them
+    over `model`: rwkv6's time-mix projections (``heads_flat``; at d =
+    2,560 over 16 ranks a 64-wide head would be cut in two), mamba2's
+    ``norm`` and ``out_proj`` (its scan runs whole heads) and the MoE
+    router (the routes read every expert's logit)."""
+    return "heads_flat" in axes or "mamba" in path or path[-1] == "router"
+
+
+def use_plans(cfg: ModelConfig, policy: MeshPolicy, mesh: Any) -> Any:
+    """Each parameter's gathers on use on ``mesh`` (a tree like
+    ``param_specs(cfg)``, each leaf a ``Gather`` or None), or None where
+    no leaf is gathered.  Every split but a `model` split the blocks
+    compute on is gathered; a gather over a mesh axis that splits the
+    batch's rows sums the gradient back (FSDP), any other takes this
+    rank's block of it.  Leaves of two dimensions or more are gathered in
+    the compute dtype (the blocks cast them to it), the embedding table in
+    its own (its lookup's gradient adds rows in fp32)."""
+    if mesh is None:
+        return None
+    specs = param_specs(cfg)
+    pspecs = storage_pspecs(specs, policy, mesh)
+    rows = set(batch_mesh_axes(policy, mesh))
+    dt = getattr(torch, cfg.dtype)
+    sizes = mesh_shape(mesh)
+    found = []
+
+    def plan(path, s, ps):
+        if isinstance(s, dict):
+            return {k: plan(path + (k,), v, ps[k]) for k, v in s.items()}
+        lead = 1 if path[0] in _STACKS else 0
+        steps = []
+        for dim, entry in enumerate(ps):
+            for name in reversed(_names(entry)):       # the minor axis first
+                if sizes[name] == 1 or (name == "model" and
+                                        not _whole_on_use(path, s.axes)):
+                    continue
+                steps.append((dim - lead, mesh.get_group(name),
+                              name in rows))
+        if not steps:
+            return None
+        found.append(path)
+        cast = len(s.shape) - lead >= 2 and path[-1] != "tok"
+        return Gather(tuple(steps), dt if cast else None)
+
+    plans = plan((), specs, pspecs)
+    return plans if found else None
+
+
+def _take(params: Dict[str, Any], plans: Any, key: str,
+          only: Tuple[str, ...] = ()) -> Any:
+    """``params[key]`` gathered for use by its plans (of its subtree,
+    the keys in ``only`` where given)."""
+    tree = params[key]
+    if only:
+        tree = {k: tree[k] for k in only if k in tree}
+    return tree if plans is None else gather_tree(tree, plans[key])
+
+
+def _sub(plans: Any, key: str) -> Any:
+    return None if plans is None else plans[key]
 
 
 def layer_flags(cfg: ModelConfig) -> np.ndarray:
@@ -184,14 +256,18 @@ def _decoder_stack(params: Dict[str, Any], x: torch.Tensor, *,
                    cfg: ModelConfig, policy: MeshPolicy, mesh: Any,
                    positions: torch.Tensor,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
-                   cache_index: Any = None, use_kernels: bool = False
-                   ) -> Tuple[torch.Tensor, Any]:
+                   cache_index: Any = None, use_kernels: bool = False,
+                   plans: Any = None) -> Tuple[torch.Tensor, Any]:
+    """The decoder layers; ``plans`` the stacked leaves' gathers
+    (:func:`use_plans`' ``["layers"]``), made inside each layer's region."""
     # numpy bools, never the literal True: the reference hands the layer a
     # traced array, so under the kernels its global layers keep the
     # sliding window (ROADMAP.md queue 3), and so do these
     flags = layer_flags(cfg)
 
     def layer(carry_x, lp, is_global, layer_cache):
+        if plans is not None:
+            lp = gather_tree(lp, plans)
         h = apply_norm(cfg, lp["ln1"], carry_x)
         a, new_cache = attention_block(
             lp["attn"], h, cfg=cfg, positions=positions, policy=policy,
@@ -229,16 +305,36 @@ def _decoder_stack(params: Dict[str, Any], x: torch.Tensor, *,
     return x, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
 
 
+def _embed(params, plans, tokens, *, cfg, policy, mesh, dtype):
+    return embed(_take(params, plans, "embed", ("tok",)), tokens,
+                 policy=policy, mesh=mesh, dtype=dtype,
+                 vocab_size=cfg.vocab_size)
+
+
+def _logits(params, plans, x, *, cfg, policy, mesh):
+    """The LM head on the normed ``x``: the untied ``head`` or the tied
+    table, gathered alone."""
+    head = ("tok",) if cfg.tie_embeddings else ("head",)
+    return lm_head(_take(params, plans, "embed", head), x, policy=policy,
+                   mesh=mesh, vocab_size=cfg.vocab_size)
+
+
+def _head(params, plans, x, *, cfg, policy, mesh):
+    x = apply_norm(cfg, _take(params, plans, "ln_f"), x)
+    return _logits(params, plans, x, cfg=cfg, policy=policy, mesh=mesh)
+
+
 def _decoder_forward(params, batch, *, cfg, policy, mesh, cache=None,
-                     cache_index=None, use_kernels=False):
+                     cache_index=None, use_kernels=False, plans=None):
     tokens = batch["tokens"]
     dtype = getattr(torch, cfg.dtype)
-    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    x = _embed(params, plans, tokens, cfg=cfg, policy=policy, mesh=mesh,
+               dtype=dtype)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         # splice precomputed patch embeddings (frontend stub) over the
         # leading n_patches token positions
         pe = batch["patch_embeds"].to(dtype) @ \
-            params["patch_proj"]["w"].to(dtype)
+            _take(params, plans, "patch_proj")["w"].to(dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     B, S = tokens.shape
     dev = tokens.device
@@ -259,10 +355,10 @@ def _decoder_forward(params, batch, *, cfg, policy, mesh, cache=None,
     x, new_cache = _decoder_stack(params, x, cfg=cfg, policy=policy,
                                   mesh=mesh, positions=positions,
                                   cache=cache, cache_index=cache_index,
-                                  use_kernels=use_kernels)
-    x = apply_norm(cfg, params["ln_f"], x)
-    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
-    return logits, new_cache
+                                  use_kernels=use_kernels,
+                                  plans=_sub(plans, "layers"))
+    return _head(params, plans, x, cfg=cfg, policy=policy,
+                 mesh=mesh), new_cache
 
 
 def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
@@ -279,7 +375,10 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
     moved there.  ``use_kernels`` is the reference's ``use_pallas``:
     prefill and scoring attention run the flash-attention kernel, MoE
     experts the grouped-matmul kernel, zamba2's Mamba2 layers the SSD
-    kernel and rwkv6 the WKV kernel; their plain versions on the CPU."""
+    kernel and rwkv6 the WKV kernel; their plain versions on the CPU.
+
+    On a mesh, ``params`` and ``cache`` are this rank's shards and the
+    logits this rank's slice of the vocabulary (module docstring)."""
     dev = resolve_device(device)
     where = params["embed"]["tok"].device
     if where.type != dev.type:
@@ -289,8 +388,11 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
              for k, v in batch.items()}
     fwd = {"ssm": _rwkv_forward, "hybrid": _hybrid_forward,
            "encdec": _encdec_forward}.get(cfg.family, _decoder_forward)
-    return fwd(params, batch, cfg=cfg, policy=policy, mesh=mesh,
-               cache=cache, cache_index=cache_index, use_kernels=use_kernels)
+    plans = use_plans(cfg, policy, mesh)
+    with regather_saved(plans is not None):
+        return fwd(params, batch, cfg=cfg, policy=policy, mesh=mesh,
+                   cache=cache, cache_index=cache_index,
+                   use_kernels=use_kernels, plans=plans)
 
 
 # ===========================================================================
@@ -308,17 +410,21 @@ def _rwkv_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
-                  cache_index=None, use_kernels=False):
+                  cache_index=None, use_kernels=False, plans=None):
     """The reference's ``_rwkv_forward``; its norms are ``rmsnorm`` with
     the layernorm's ``scale`` (see ``models/rwkv6.py``)."""
     from .layers import rmsnorm
     tokens = batch["tokens"]
     dtype = getattr(torch, cfg.dtype)
-    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    x = _embed(params, plans, tokens, cfg=cfg, policy=policy, mesh=mesh,
+               dtype=dtype)
     decode = cache_index is not None
     stateful = cache is not None or decode
     new = {"wkv": [], "shift_a": [], "shift_f": []}
+    layer_plans = _sub(plans, "layers")
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        if layer_plans is not None:
+            lp = gather_tree(lp, layer_plans)
         st = {key: cache[key][i] for key in new} if stateful else None
         h = rmsnorm(x, lp["ln1"]["scale"], cfg.norm_eps)
         a, st_a = rwkv6_att(lp["att"], h, cfg=cfg, policy=policy, mesh=mesh,
@@ -334,9 +440,9 @@ def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
             new["shift_f"].append(new_sf)
     new_cache = {key: torch.stack(v) for key, v in new.items()} \
         if stateful else None
-    x = rmsnorm(x, params["ln_f"]["scale"], cfg.norm_eps)
-    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
-    return logits, new_cache
+    x = rmsnorm(x, _take(params, plans, "ln_f")["scale"], cfg.norm_eps)
+    return _logits(params, plans, x, cfg=cfg, policy=policy,
+                   mesh=mesh), new_cache
 
 
 # ===========================================================================
@@ -356,10 +462,11 @@ def _hybrid_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
-                    cache_index=None, use_kernels=False):
+                    cache_index=None, use_kernels=False, plans=None):
     tokens = batch["tokens"]
     dtype = getattr(torch, cfg.dtype)
-    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    x = _embed(params, plans, tokens, cfg=cfg, policy=policy, mesh=mesh,
+               dtype=dtype)
     decode = cache_index is not None
     B, S = tokens.shape
     every = max(1, cfg.shared_attn_every)
@@ -369,7 +476,11 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
                  + int(cache_index))
     positions = positions.expand(B, S)
 
+    layer_plans = _sub(plans, "layers")
+
     def mamba_layer(x_in, lp, st):
+        if layer_plans is not None:
+            lp = gather_tree(lp, layer_plans)
         h = apply_norm(cfg, lp["ln1"], x_in)
         m, new_st = mamba2_block(lp["mamba"], h, cfg=cfg, policy=policy,
                                  mesh=mesh, state=st, decode=decode,
@@ -397,8 +508,9 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
                 new_conv.append(st["conv"])
             else:
                 x, _ = mamba_layer(x, lp, None)
-        # shared attention block (same params every application)
-        sp = params["shared"]
+        # shared attention block (same params every application, gathered
+        # at each)
+        sp = _take(params, plans, "shared")
         hh = apply_norm(cfg, sp["ln1"], x)
         app_cache = None
         if c is not None:
@@ -422,9 +534,8 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
                      else c["shared_k"],
                      "shared_v": torch.stack(new_sv) if new_sv
                      else c["shared_v"]}
-    x = apply_norm(cfg, params["ln_f"], x)
-    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
-    return logits, new_cache
+    return _head(params, plans, x, cfg=cfg, policy=policy,
+                 mesh=mesh), new_cache
 
 
 # ===========================================================================
@@ -446,39 +557,49 @@ def _encdec_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _cross_attention(p, x, enc_out, *, cfg, policy, mesh):
     """Decoder queries over the encoder's output, unmasked (plain
-    ``_sdpa``, as the reference)."""
+    ``_sdpa``, as the reference); on a mesh, this rank's heads
+    (``layers._tp_heads``) and the ranks' outputs added."""
     B, Sq, d = x.shape
     dt = x.dtype
+    group, p, pick = _tp_heads(p, cfg, mesh, keep_all_kv=False)
+    x, enc_out = from_replicated(x, group), from_replicated(enc_out, group)
+    read = pick or (lambda t: t)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
     mask = torch.ones((B, Sq, enc_out.shape[1]), dtype=torch.bool,
                       device=x.device)
-    out = _sdpa(q, k, v, mask, None)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    out = _sdpa(q, read(k), read(v), mask, None)
+    return reduce_over(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)),
+                       group)
 
 
 def _encoder_layer(lp, x, pos, *, cfg, policy, mesh):
     """Bidirectional self-attention with RoPE (plain ``_sdpa``), then the
-    MLP; the reference's encoder layer."""
+    MLP; the reference's encoder layer (on a mesh, as
+    :func:`_cross_attention` splits its heads)."""
     h = apply_norm(cfg, lp["ln1"], x)
     B, S, _ = h.shape
     dt = h.dtype
-    q = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wv"].to(dt))
+    group, pa, pick = _tp_heads(lp["attn"], cfg, mesh, keep_all_kv=False)
+    h = from_replicated(h, group)
+    read = pick or (lambda t: t)
+    q = torch.einsum("bsd,dhk->bshk", h, pa["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", h, pa["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", h, pa["wv"].to(dt))
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    a = _sdpa(q, k, v, torch.ones((B, S, S), dtype=torch.bool,
-                                  device=h.device), None)
-    a = torch.einsum("bshk,hkd->bsd", a, lp["attn"]["wo"].to(dt))
+    a = _sdpa(q, read(k), read(v), torch.ones((B, S, S), dtype=torch.bool,
+                                              device=h.device), None)
+    a = reduce_over(torch.einsum("bshk,hkd->bsd", a, pa["wo"].to(dt)),
+                    group)
     x2 = x + a
     h2 = apply_norm(cfg, lp["ln2"], x2)
     return x2 + mlp_block(lp["mlp"], h2, cfg=cfg, policy=policy, mesh=mesh)
 
 
 def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
-                    cache_index=None, use_kernels=False):
+                    cache_index=None, use_kernels=False, plans=None):
     dtype = getattr(torch, cfg.dtype)
     decode = cache_index is not None
     # ---------------- encoder (skipped during decode: enc_out cached) ----
@@ -487,15 +608,19 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
         Bf, Sf = enc_out.shape[:2]
         pos_e = torch.arange(Sf, device=enc_out.device)[None, :].expand(
             Bf, Sf)
+        enc_plans = _sub(plans, "enc")
         for lp in _unstack(params["enc"], cfg.n_enc_layers):
+            if enc_plans is not None:
+                lp = gather_tree(lp, enc_plans)
             enc_out = _encoder_layer(lp, enc_out, pos_e, cfg=cfg,
                                      policy=policy, mesh=mesh)
-        enc_out = apply_norm(cfg, params["ln_enc"], enc_out)
+        enc_out = apply_norm(cfg, _take(params, plans, "ln_enc"), enc_out)
     else:
         enc_out = cache["enc_out"].to(dtype)
     # ---------------- decoder -------------------------------------------
     tokens = batch["tokens"]
-    x = embed(params["embed"], tokens, policy=policy, mesh=mesh, dtype=dtype)
+    x = _embed(params, plans, tokens, cfg=cfg, policy=policy, mesh=mesh,
+               dtype=dtype)
     B, S = tokens.shape
     dev = tokens.device
     positions = (torch.arange(S, device=dev)[None, :] if not decode
@@ -503,7 +628,10 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
                                  dtype=torch.int32, device=dev))
     positions = positions.expand(B, S)
     new_k, new_v = [], []
+    dec_plans = _sub(plans, "dec")
     for i, lp in enumerate(_unstack(params["dec"], cfg.n_dec_layers)):
+        if dec_plans is not None:
+            lp = gather_tree(lp, dec_plans)
         layer_cache = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i]}
         h = apply_norm(cfg, lp["ln1"], x)
@@ -524,9 +652,8 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
     if cache is not None:
         new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v),
                      "enc_out": enc_out.to(cache["enc_out"].dtype)}
-    x = apply_norm(cfg, params["ln_f"], x)
-    logits = lm_head(params["embed"], x, policy=policy, mesh=mesh)
-    return logits, new_cache
+    return _head(params, plans, x, cfg=cfg, policy=policy,
+                 mesh=mesh), new_cache
 
 
 # ===========================================================================
@@ -545,16 +672,36 @@ def nll_terms(params: Dict[str, Any], batch: Dict[str, Any], *,
     sum, so that a vocab sharded over a mesh needs no all-gather; on one
     card ``torch.gather`` of the clamped labels gives the same value (the
     one-hot sum adds one logit to zeros) without two ``[B, S, V]``
-    temporaries."""
+    temporaries.
+
+    Where the logits are this rank's slice of the vocabulary (a mesh that
+    splits it over `model`), the max, the sum of the exponentials and the
+    gold logit (this rank's where the label is among its columns, else 0)
+    are each reduced over `model`; ``[B, S, V]`` is never gathered."""
     logits, _ = forward(params, batch, cfg=cfg, policy=policy, mesh=mesh,
                         use_kernels=use_kernels, device=device)
     labels = batch["labels"]
     labels = (labels if torch.is_tensor(labels) else torch.from_numpy(
         np.asarray(labels))).to(logits.device).long()
     lf = logits.float()
-    m = lf.amax(-1, keepdim=True).detach()
-    logz = torch.log(torch.exp(lf - m).sum(-1)) + m.squeeze(-1)
-    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None]).squeeze(-1)
+    V = lf.shape[-1]
+    if V == cfg.vocab_size:
+        m = lf.amax(-1, keepdim=True).detach()
+        logz = torch.log(torch.exp(lf - m).sum(-1)) + m.squeeze(-1)
+        gold = torch.gather(lf, -1,
+                            labels.clamp_min(0)[..., None]).squeeze(-1)
+    else:
+        from ..parallel.sharding import all_gather_dim
+        group, _, rank = model_part(mesh)
+        with torch.no_grad():
+            m = all_gather_dim(lf.amax(-1, keepdim=True), -1 % lf.dim(),
+                               group).amax(-1, keepdim=True)
+        total = reduce_over(torch.exp(lf - m).sum(-1), group)
+        logz = torch.log(total) + m.squeeze(-1)
+        ids = labels - rank * V
+        held = (ids >= 0) & (ids < V)
+        mine = torch.gather(lf, -1, ids.clamp(0, V - 1)[..., None])
+        gold = reduce_over(torch.where(held, mine.squeeze(-1), 0.0), group)
     mask = (labels >= 0).float()
     nll = (logz - gold) * mask
     return nll.sum(), mask.sum()

@@ -6,6 +6,10 @@ kernel): within a chunk of length Q the output is an attention-like
 quadratic form masked by cumulative decays; across chunks a recurrent state
 ``h [B, H, hd, N]`` carries the summary.  Decode is a single-step state
 update.
+
+On a mesh the block runs whole on every rank: ``models.lm`` gathers its
+``norm`` and ``out_proj`` (split over `model` in the reference's layout)
+before it runs.
 """
 from __future__ import annotations
 

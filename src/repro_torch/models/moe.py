@@ -14,8 +14,13 @@ three routes, chosen by :func:`moe_route` from the mesh as there:
     slice of the hidden dim; the down-projection is summed by
     ``all_reduce`` (mixtral's 8 experts on a 16-way axis).
 
-:func:`moe_pspecs` says which slice of each parameter a rank holds; the
-router is replicated.  Under ``use_kernels`` the experts' three matmuls go
+:func:`moe_pspecs` says which slice of each expert leaf a route computes
+on, and the routes check the shards they are handed against it.  The
+parameters are stored as ``parallel.sharding.storage_pspecs`` lays them
+out; the model (``models.lm``) gathers the experts' `embed` dimension over
+`data` (FSDP) and the router over `model` at the layer's entry, as GSPMD
+does at the reference's ``shard_map`` boundary, so a route sees the
+router whole.  Under ``use_kernels`` the experts' three matmuls go
 through ``kernels.moe_gmm.ops.gmm`` on the rank's local experts (the CUDA
 kernel for CUDA tensors, its plain version for CPU tensors).
 
@@ -25,8 +30,9 @@ carry the transpose rules of the reference's ``shard_map``: every rank
 computes the same loss from the same tokens, so a rank's gradient of the
 route's output counts 1/M (:class:`_ToReplicated`) and the gradients of
 the replicated inputs, tokens and router, are summed over the group
-(:class:`_FromReplicated`).  Each rank then holds the whole gradient of
-the replicated leaves and its experts' share, as ``jax.grad`` gives.
+(:class:`_FromReplicated`); both are ``parallel.sharding``'s, shared with
+the dense regions.  Each rank then holds the whole gradient of the
+replicated leaves and its experts' share, as ``jax.grad`` gives.
 
 One departure: the reference's EP reshapes the exchanged
 ``[M, E_loc, C, d]`` buffer to ``[E_loc, M * C, d]`` without moving the
@@ -44,7 +50,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import MeshPolicy, P, is_device_mesh, mesh_shape
+from ..parallel.sharding import (MeshPolicy, P, _FromReplicated,
+                                 _ToReplicated, is_device_mesh, mesh_shape)
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -171,11 +178,13 @@ def moe_route(cfg: ModelConfig, mesh: Any = None) -> str:
 
 
 def moe_pspecs(axes_tree: Any, cfg: ModelConfig, mesh: Any = None) -> Any:
-    """Each leaf's PartitionSpec as the MoE routes hold the parameters on
-    ``mesh`` (the reference's ``shard_map`` in_specs): the experts'
-    weights (the leaves with an ``expert_mlp`` axis) split over `model` by
-    expert (EP) or by hidden dim (TP); everything else, the router
-    included, replicated."""
+    """Each leaf's PartitionSpec over `model` as the MoE routes compute on
+    the parameters on ``mesh`` (the reference's ``shard_map`` in_specs):
+    the experts' weights (the leaves with an ``expert_mlp`` axis) split
+    over `model` by expert (EP) or by hidden dim (TP); everything else, the
+    router included, whole.  Not the storage layout
+    (``parallel.sharding.storage_pspecs``): the routes check their shards
+    against it."""
     split = {"ep": "experts", "tp": "expert_mlp"}.get(moe_route(cfg, mesh))
 
     def spec(axes):
@@ -195,44 +204,33 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
               policy: MeshPolicy, mesh: Any = None,
               use_kernels: bool = False) -> torch.Tensor:
     """Dispatch to EP / TP / dense based on mesh shape; ``p`` holds this
-    rank's slices (:func:`moe_pspecs`), ``x`` this rank's tokens."""
+    rank's experts as they are stored and the whole router, ``x`` this
+    rank's tokens.  Experts stored split by their hidden units take the TP
+    route, split by expert the EP route; experts stored whole (a policy
+    that does not split them) take the route :func:`moe_route` picks, on
+    this rank's slice of them (:func:`moe_pspecs`), their gradient summed
+    over the group."""
     route = moe_route(cfg, mesh)
     if route == "dense":
         return moe_dense(p, x, cfg, use_kernels=use_kernels)
-    route_fn = _moe_ep if route == "ep" else _moe_tp
-    return route_fn(p, x, cfg, mesh.get_group("model"), use_kernels)
-
-
-class _FromReplicated(torch.autograd.Function):
-    """Into the route from a tensor every rank of ``group`` holds alike:
-    the identity; its gradient is summed over the group."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
+    group = mesh.get_group("model")
+    E, f = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    if p["wi"].shape[-1] < f:
+        route = "tp"
+    elif p["wi"].shape[0] < E:
+        route = "ep"
+    else:
         import torch.distributed as dist
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ToReplicated(torch.autograd.Function):
-    """Out of the route to a tensor every rank holds alike: the identity;
-    each of the ``n`` ranks' identical losses counts 1/n of its
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, t, n):
-        ctx.n = n
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None
+        M, r = group.size(), dist.get_rank(group)
+        p = dict(p)
+        for name, dim in (("wi", 2), ("wg", 2), ("wo", 1)):
+            w = _FromReplicated.apply(p[name], group)
+            if route == "ep":
+                p[name] = w.narrow(0, r * (E // M), E // M)
+            else:
+                p[name] = w.narrow(dim, r * (f // M), f // M)
+    route_fn = _moe_ep if route == "ep" else _moe_tp
+    return route_fn(p, x, cfg, group, use_kernels)
 
 
 def _capacity(T: int, k: int, E: int, capacity_factor: float) -> int:

@@ -118,8 +118,8 @@ def shard_params(tree: Any, pspecs: Any, mesh: Any,
                  device: Union[str, torch.device, None] = None) -> Any:
     """This rank's slices of a full parameter tree (numpy arrays or
     tensors) on ``mesh``: each leaf cut by its PartitionSpec in ``pspecs``
-    (a tree of the same keys, e.g. ``parallel.sharding.param_pspecs`` or
-    ``models.moe.moe_pspecs``), then carried to ``device`` as
+    (a tree of the same keys, e.g. ``parallel.sharding.storage_pspecs``),
+    then carried to ``device`` as
     :func:`params_from_numpy` does."""
     names = tuple(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()

@@ -20,6 +20,11 @@ The reference's quirks are kept, for parity:
 - ``ln_x`` is an rmsnorm over all of d, not a group norm per head;
 - the plain path cuts chunks of 64 steps, the kernel path chunks of 32.
 
+On a mesh the time-mix leaves (``heads_flat``) arrive whole (``models.lm``
+gathers them over `model`: a 64-wide head would be cut in two), so the
+time mixing runs whole on every rank; the channel mix splits its hidden
+units.
+
 Unlike the reference, :func:`wkv6_chunked` takes any S: chunks of
 ``chunk`` steps, the last one cut short (the reference reshapes into
 ``S // chunk`` chunks of ``S // nc`` steps, which fails where that does not
@@ -32,7 +37,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import MeshPolicy, shard_constraint
+from ..parallel.sharding import (MeshPolicy, from_replicated, model_part,
+                                 reduce_over, shard_constraint)
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -190,15 +196,21 @@ def rwkv6_ffn(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
               policy: MeshPolicy, mesh: Any = None,
               state: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Channel mixing.  Returns (out, the new ``shift_f`` carry)."""
+    """Channel mixing.  Returns (out, the new ``shift_f`` carry).  On a
+    mesh that splits its hidden units over `model`, ``wk`` is
+    column-parallel and ``wv`` row-parallel (``layers.mlp_block``'s
+    split), the gate ``wr`` whole."""
     prev = state["shift_f"] if state is not None else None
     xs, new_prev = _token_shift(x, prev)
     dt = x.dtype
     mu = p["mu"].to(dt)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
+    group = model_part(mesh)[0] if p["wk"].shape[-1] < cfg.d_ff else None
+    xk = from_replicated(xk, group)
     kk = torch.square(torch.relu(xk @ p["wk"].to(dt)))
     kk = shard_constraint(kk, ("batch", "seq", "mlp"), policy, mesh)
-    y = (kk @ p["wv"].to(dt)) * torch.sigmoid(xr @ p["wr"].to(dt))
+    y = reduce_over(kk @ p["wv"].to(dt), group) * \
+        torch.sigmoid(xr @ p["wr"].to(dt))
     return shard_constraint(y, ("batch", "seq", "act_embed"), policy,
                             mesh), new_prev

@@ -8,6 +8,13 @@ together.  The scheduling is the reference's exactly, its faults included:
 every step writes every slot's cache (a prefill feeds zeros to the other
 slots), and a step decodes every slot at the largest position (ROADMAP.md
 queue 3).  Runs on the card unless ``device="cpu"`` is asked for.
+
+On a mesh, ``params`` are this rank's shards
+(``parallel.sharding.storage_pspecs``), the cache is held as its axes
+split it (the kv heads over `model` where they divide), every rank serves
+every slot, and the last
+position's logits, this rank's slice of the vocabulary, are gathered over
+`model` before the ``argmax``.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from ..device import resolve_device
 from ..models import forward, init_cache_specs
 from ..models.config import ModelConfig
 from ..models.params import tree_map
-from ..parallel.sharding import MeshPolicy
+from ..parallel.sharding import (MeshPolicy, all_gather_dim, local_shape,
+                                 model_part, storage_pspecs)
 
 
 @dataclass
@@ -46,10 +54,16 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         specs = init_cache_specs(cfg, max_batch, max_seq)
+        shapes = tree_map(lambda s: s.shape, specs)
+        if mesh is not None:
+            # every slot on every rank; the KV sequence whole
+            whole = policy.with_rules(batch=None, kv_seq=None)
+            shapes = tree_map(lambda s: local_shape(
+                s.shape, storage_pspecs(s, whole, mesh), mesh), specs)
         # the reference's cache dtypes: bf16 for rank >= 3, fp32 otherwise
-        self.cache = tree_map(lambda s: torch.zeros(
-            s.shape, dtype=torch.bfloat16 if len(s.shape) >= 3
-            else torch.float32, device=self.device), specs)
+        self.cache = tree_map(lambda shape: torch.zeros(
+            shape, dtype=torch.bfloat16 if len(shape) >= 3
+            else torch.float32, device=self.device), shapes)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.positions = np.zeros(max_batch, np.int32)
         self.queue: List[Request] = []
@@ -70,7 +84,10 @@ class ServeEngine:
                                     cfg=self.cfg, policy=self.policy,
                                     mesh=self.mesh, cache=cache,
                                     cache_index=index, device=self.device)
-        return torch.argmax(logits[:, -1], dim=-1), new_cache
+        last = logits[:, -1]
+        if last.shape[-1] < self.cfg.vocab_size:
+            last = all_gather_dim(last, 1, model_part(self.mesh)[0])
+        return torch.argmax(last, dim=-1), new_cache
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(tokens).to(self.device)

@@ -9,10 +9,13 @@ PyTorch (its launcher jit-compiles them; here they run eagerly).
 
 ``use_kernels`` is the reference's ``use_pallas``; ``device`` is where the
 parameters are (the card unless ``device="cpu"``), as ``forward`` takes
-it.  On a mesh each rank runs the step on its own copy of the batch and of
-the replicated parameters, and on its slices of the experts
-(``models.moe.moe_pspecs``); the gradient's norm for the clip sums those
-slices' squares over the `model` group, so every rank clips alike.
+it.  On a mesh each rank runs the step on its shards of the parameters
+and of AdamW's moments, as ``parallel.sharding.storage_pspecs`` stores
+them (heads, MLP, vocabulary and experts over `model`; under FSDP the
+`embed` dimension over `data`), and AdamW updates those shards; the
+gradient's norm for the clip sums each leaf's squared shard over the
+groups that split it (a leaf split over none counted once), so every rank
+clips alike.
 
 Data parallelism: where the batch's logical axis maps to mesh axes of
 more than one rank (``("pod", "data")`` by ``logical_to_pspec``), the
@@ -23,7 +26,10 @@ out): each slice's summed NLL is divided by the label count of the whole
 batch (of the reference's microbatch that holds it), counts and losses
 are summed over the batch's mesh axes, and so are the gradients (in bf16
 under ``cfg.grad_compress``, "bf16 on the wire"), so every replica holds
-the whole batch's gradient before AdamW.  ``launch.mesh.make_host_mesh``
+the whole batch's gradient of its shards before AdamW.  A leaf that FSDP
+splits over `data` had its gradient reduce-scattered over `data` in the
+backward (``parallel.sharding.gather_leaf``): it is summed over the
+batch's other axes only, so no gradient is summed twice.  ``launch.mesh.make_host_mesh``
 builds a data axis of 1: there each rank's rows are the whole batch.
 """
 from __future__ import annotations
@@ -33,12 +39,13 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 
-from ..models import axes_tree, forward, param_specs
+from ..models import forward, param_specs
 from ..models.config import ModelConfig
 from ..models.lm import nll_terms
-from ..models.moe import moe_pspecs
 from ..models.params import tree_leaves, tree_map
-from ..parallel.sharding import MeshPolicy, logical_to_pspec, mesh_shape
+from ..parallel.sharding import (MeshPolicy, _names, grad_wire,
+                                 logical_to_pspec, mesh_shape,
+                                 storage_pspecs)
 from .optimizer import OptConfig, _paired, adamw_update
 
 Device = Union[str, torch.device, None]
@@ -49,43 +56,55 @@ def _unflatten_like(tree: Any, leaves: list) -> Any:
     return tree_map(lambda _: next(it), tree)
 
 
-def _mesh_gnorm(cfg: ModelConfig, mesh: Any, grads: Any):
+def _split_axes(spec: Any, sizes: Dict[str, int]) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that split a leaf."""
+    return tuple(sorted({a for e in spec for a in _names(e)
+                         if sizes[a] > 1}))
+
+
+def _mesh_gnorm(cfg: ModelConfig, policy: MeshPolicy, mesh: Any,
+                grads: Any):
     """The whole gradient's norm on ``mesh``, or None where no leaf is
     split over ranks (then each rank's own gradient is whole).  The
-    gradients are alike on every replica of the batch's axes (reduced
-    there), so only the `model` group's slices are summed."""
+    gradients are alike on every rank of the axes that do not split them
+    (reduced there), so each leaf's squared shard is summed over the
+    groups of the axes that do, leaves grouped by those axes, one
+    all-reduce a group of axes."""
     if mesh is None:
         return None
-    specs = moe_pspecs(axes_tree(param_specs(cfg)), cfg, mesh)
-    whole, split = [], []
+    sizes = mesh_shape(mesh)
+    specs = storage_pspecs(param_specs(cfg), policy, mesh)
+    parts: Dict[Tuple[str, ...], list] = {}
     for g, spec in _paired(grads, specs):
-        (split if any(e is not None for e in spec) else whole).append(
+        parts.setdefault(_split_axes(spec, sizes), []).append(
             g.float().square().sum())
-    if not split:
+    if set(parts) <= {()}:
         return None
     import torch.distributed as dist
-    part = torch.stack(split).sum()
-    dist.all_reduce(part, group=mesh.get_group("model"))
-    return torch.sqrt(torch.stack(whole).sum() + part)
+    total = None
+    for axes, sq in parts.items():
+        part = torch.stack(sq).sum()
+        for name in axes:
+            dist.all_reduce(part, group=mesh.get_group(name))
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
-def _batch_groups(policy: MeshPolicy, mesh: Any) -> Tuple[list, int, int]:
-    """(process groups of the mesh axes the batch's rows are split over,
-    the number of slices, this rank's slice): ``("pod", "data")`` by
-    default, the first of them major."""
+def _batch_axes(policy: MeshPolicy, mesh: Any) -> Tuple[list, int, int]:
+    """(the mesh axes of more than one rank the batch's rows are split
+    over, the number of slices, this rank's slice): ``("pod", "data")``
+    by default, the first of them major."""
     if mesh is None:
         return [], 1, 0
     entry = logical_to_pspec(("batch",), policy, mesh)[0]
-    names = () if entry is None else \
-        (entry if isinstance(entry, tuple) else (entry,))
     sizes = mesh_shape(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    groups, n, i = [], 1, 0
-    for name in names:
+    names, n, i = [], 1, 0
+    for name in _names(entry):
         n, i = n * sizes[name], i * sizes[name] + coord[name]
         if sizes[name] > 1:
-            groups.append(mesh.get_group(name))
-    return groups, n, i
+            names.append(name)
+    return names, n, i
 
 
 def _sum_over(groups: list, *ts: torch.Tensor) -> None:
@@ -109,7 +128,8 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
     # leaves that require grad and share the parameters' storage
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     diff = _unflatten_like(params, leaves)
-    groups, n_slices, me = _batch_groups(policy, mesh)
+    axes, n_slices, me = _batch_axes(policy, mesh)
+    groups = [mesh.get_group(a) for a in axes]
     m = max(1, microbatches)
     rows = batch["tokens"].shape[0] // m
     parts = [batch] if m == 1 else \
@@ -128,14 +148,17 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
     counts = counts.clamp_min(1.0)
 
     grads, loss = None, 0.0
+    # FSDP's reduce-scatters in bf16 where the gradients go out in bf16
+    wire = torch.bfloat16 if cfg.grad_compress and m == 1 else None
     for j, b in enumerate(parts):
-        total, _ = nll_terms(diff, b, cfg=cfg, policy=policy, mesh=mesh,
-                             use_kernels=use_kernels, device=device)
-        part = total / counts[where[j]]
-        # a parameter the loss does not use (command-r's ln2) gets zeros,
-        # as under jax.grad
-        g = torch.autograd.grad(part, leaves, allow_unused=True,
-                                materialize_grads=True)
+        with grad_wire(wire):
+            total, _ = nll_terms(diff, b, cfg=cfg, policy=policy, mesh=mesh,
+                                 use_kernels=use_kernels, device=device)
+            part = total / counts[where[j]]
+            # a parameter the loss does not use (command-r's ln2) gets
+            # zeros, as under jax.grad
+            g = torch.autograd.grad(part, leaves, allow_unused=True,
+                                    materialize_grads=True)
         if m == 1:
             grads = list(g)
         elif grads is None:
@@ -152,10 +175,17 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
         # bf16 on the wire (the DP/FSDP reduce-scatter happens on the
         # cast values); the optimizer re-ups to f32 for accumulation
         grads = [g.to(torch.bfloat16) for g in grads]
-    _sum_over(groups, loss, *grads)
+    _sum_over(groups, loss)
     grads = _unflatten_like(params, grads)
+    if groups:
+        # a leaf split over a batch axis was summed there in the backward
+        sizes = mesh_shape(mesh)
+        specs = storage_pspecs(param_specs(cfg), policy, mesh)
+        for g, spec in _paired(grads, specs):
+            done = _split_axes(spec, sizes)
+            _sum_over([mesh.get_group(a) for a in axes if a not in done], g)
     adamw_update(opt, params, grads, opt_state,
-                 gnorm=_mesh_gnorm(cfg, mesh, grads))
+                 gnorm=_mesh_gnorm(cfg, policy, mesh, grads))
     return params, opt_state, loss
 
 

@@ -3,9 +3,9 @@ step on the whole batch, on the CPU.
 
 Gloo ranks started by ``launch.mesh.spawn_ranks`` on a (2, 1) and a
 (2, 2) ``("data", "model")`` mesh each take their rows of the batch
-(``shard_params`` by the batch's logical axes) and their slices of the
-parameters (``moe_pspecs``: the experts over `model`), and run one
-``train_step_fn``; the reference's ``train_step_fn`` runs the whole batch
+(``shard_params`` by the batch's logical axes) and their shards of the
+parameters (``storage_pspecs``: heads, MLP, vocabulary and experts over
+`model` where they divide), and run one ``train_step_fn``; the reference's ``train_step_fn`` runs the whole batch
 on one device.  The qwen1.5 and qwen3-moe smoke configurations in fp32
 (in bf16 the frameworks round at other places), plain, with
 ``grad_compress`` and with ``microbatches=2``; the labels are masked
@@ -101,15 +101,15 @@ def _dp_rank(rank, world, device, shape):
     gathered."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.models import axes_tree, gather_params, shard_params
-    from repro_torch.models.moe import moe_pspecs
-    from repro_torch.parallel.sharding import MeshPolicy, param_pspecs
+    from repro_torch.models import gather_params, shard_params
+    from repro_torch.parallel.sharding import (MeshPolicy, param_pspecs,
+                                               storage_pspecs)
     from repro_torch.train import OptConfig, adamw_init, train_step_fn
     mesh = init_device_mesh(CPU, shape, mesh_dim_names=("data", "model"))
     out = {}
     for arch, gc, mb in CASES:
         cfg = _cfg(arch, gc)
-        pspecs = moe_pspecs(axes_tree(param_specs(cfg)), cfg, mesh)
+        pspecs = storage_pspecs(param_specs(cfg), MeshPolicy(), mesh)
         params = shard_params(_weights(cfg), pspecs, mesh, CPU)
         axes = {"tokens": ("batch", None), "labels": ("batch", None)}
         rows = shard_params(_batch(cfg), param_pspecs(axes, MeshPolicy(),

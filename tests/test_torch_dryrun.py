@@ -127,34 +127,87 @@ def test_run_cell_fast_matches_the_reference(reference, arch, shape,
 
 
 def test_collectives_of_the_traced_train_step():
-    """qwen1.5's smoke train_4k cell: the batch split over `data` (16),
-    so rank 0's step all-reduces the label counts, each gradient leaf and
-    the loss over `data`, nothing else (dense leaves are whole on every
-    rank: no clip-norm all-reduce); qwen3-moe's decode cell on the TP
-    route (8 experts on 16 ranks) all-reduces its experts' output once a
-    layer."""
+    """qwen1.5's smoke train_4k cell (``cell_policy``: its 5 heads whole,
+    MLP and vocabulary over `model`, no FSDP at d = 60): the batch split
+    over `data` (16), so rank 0's step all-reduces the label counts, each
+    gradient leaf (its shard) and the loss over `data`; tensor
+    parallelism adds one all-reduce of the embedding's rows, one of each
+    MLP's output and, in the backward, one of each MLP's and the head's
+    input gradient (``[16, 4096, 60]`` bf16 each), two of the loss's
+    ``[16, 4096]`` terms (the sum of exponentials and the gold logit), one
+    all-gather of the rows' maxima over the vocabulary's 16 slices, and
+    the clip norm's one all-reduce over `model`.  qwen3-moe's decode
+    cell (FSDP at d = 64; the TP route, 8 experts on 16 ranks) gathers
+    each layer's ten leaves over `data`, the table, the head and the
+    final norm, all-reduces the embedding's rows and each layer's expert
+    output."""
     from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.sharding import local_shape, storage_pspecs
     cfg = get_smoke_config("qwen1_5_4b")
     got = dryrun.run_cell("qwen1_5_4b", "train_4k", multi_pod=False,
                           cfg_override=cfg)
-    n_leaves = len(tree_leaves(dryrun.param_specs(cfg)))
+    specs = dryrun.param_specs(cfg)
+    n_leaves, L = len(tree_leaves(specs)), cfg.n_layers
     assert got["cost_raw"]["collective_calls"] == {
-        "all-reduce": n_leaves + 2}
-    # each leaf fp32 once, the counts (one microbatch) and the loss
-    n_params = sum(int(np.prod(s.shape))
-                   for s in tree_leaves(dryrun.param_specs(cfg)))
+        "all-reduce": n_leaves + 2 + 1 + 2 * L + 1 + 2 + 1,
+        "all-gather": 1}
+    with dryrun.fake_world(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        policy = dryrun.cell_policy(cfg, "train_4k")
+        local = sum(int(np.prod(local_shape(s.shape, p, mesh))) for s, p in
+                    zip(tree_leaves(specs),
+                        tree_leaves(storage_pspecs(specs, policy, mesh))))
+    rows, S = 256 // 16, 4096
+    act = rows * S * cfg.d_model * 2
+    # the shards' fp32 gradients, six bf16 activations, two fp32 loss
+    # terms; the counts, the loss and the clip norm's sum of squares
     assert got["per_device"]["collectives_by_kind"] == {
-        "all-reduce": 4.0 * n_params + 8}
+        "all-reduce": 4.0 * local + 6 * act + 2 * rows * S * 4 + 12,
+        "all-gather": 16.0 * rows * S * 4}
     assert got["per_device"]["collective_bytes_recorded"] == \
-        2 * (4.0 * n_params + 8)
+        2 * (4.0 * local + 6 * act + 2 * rows * S * 4 + 12) + \
+        16.0 * rows * S * 4
     assert got["per_device"]["flops"] == got["cost_raw"]["flops"]
     assert got["roofline"]["compute_s"] == \
         got["per_device"]["flops"] / dryrun.PEAK_FLOPS
     moe = get_smoke_config("qwen3_moe_30b_a3b")
     got = dryrun.run_cell("qwen3_moe_30b_a3b", "decode_32k",
                           multi_pod=False, fast=True, cfg_override=moe)
+    assert got["policy"]["fsdp"] is True
     assert got["cost_raw"]["collective_calls"] == {
-        "all-reduce": moe.n_layers}
+        "all-gather": 10 * moe.n_layers + 3, "all-reduce": moe.n_layers + 1}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rank_arguments_are_the_reference_layout(arch):
+    """``rank_inputs``' arguments, as the port stores them, hold the
+    bytes of the reference's layout (``reference_layout`` with every
+    argument read) in every cell of ``configs.cells()`` at full width:
+    decode's index is a Python int here (4 bytes there), and the long_500k
+    caches, which the reference splits along the sequence over `data`
+    (``seq_shard``), are whole here."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    n = 0
+    with dryrun.fake_world(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        for a, shape, _ in cells():
+            if a != arch:
+                continue
+            cfg = get_config(arch)
+            policy = dryrun.cell_policy(cfg, shape)
+            with FakeTensorMode():
+                args = dryrun.rank_inputs(cfg, shape, mesh, policy)
+                got = dryrun.StepRecorder().hold(args)
+            ref = dryrun.reference_layout(cfg, shape, mesh, policy)
+            index = 4 if SHAPES[shape]["kind"] == "decode" else 0
+            if policy.seq_shard:
+                whole = dryrun.reference_layout(
+                    cfg, shape, mesh, policy.with_rules(kv_seq=None))
+                assert whole["argument"] >= ref["argument"]
+                ref = whole
+            assert got + index == ref["argument"], shape
+            n += 1
+    assert n >= 3
 
 
 def test_period_and_derive_depth_match_the_reference(reference):
@@ -293,6 +346,92 @@ def test_step_recorder_fills_collectives_and_tracks_memory():
         assert arg.untyped_storage()._cdata in rec.read
         assert unread.untyped_storage()._cdata not in rec.read
     assert not dist.is_initialized()
+
+
+def test_step_recorder_fills_all_gather_and_reduce_scatter():
+    """On the fake group with ``fill``: an all-gather's output holds this
+    rank's shard in its own slot (rank 0's: the first) and in slot ``j``
+    the shard's elements rotated by ``j``; a reduce-scatter's is ``size``
+    times this rank's own chunk; both counted by kind, result bytes; with
+    ``track=False`` the same fill, no storages."""
+    from repro_torch.parallel.sharding import (all_gather_dim,
+                                               reduce_scatter_dim)
+    with dryrun.fake_world(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        group = mesh.get_group("data")
+        shard = torch.arange(6.0).reshape(2, 3)
+        full = torch.arange(16 * 6.0).reshape(32, 3)
+        rec = dryrun.StepRecorder(fill=True)
+        with rec:
+            g0 = all_gather_dim(shard, 0, group)
+            g1 = all_gather_dim(shard, 1, group)
+            r0 = reduce_scatter_dim(full, 0, group)
+        slots = [shard.reshape(-1).roll(j).reshape(2, 3) for j in range(16)]
+        assert torch.equal(g0, torch.cat(slots, 0))
+        # along dim 1 the shard travels with that dimension first
+        assert torch.equal(g1, torch.cat(
+            [shard.t().reshape(-1).roll(j).reshape(3, 2).t()
+             for j in range(16)], 1))
+        assert torch.equal(r0, 16 * full[:2])       # rank 0's chunk
+        assert rec.calls == {"all-gather": 2, "reduce-scatter": 1}
+        assert rec.collectives == {"all-gather": 2 * 16 * 24.0,
+                                   "reduce-scatter": 24.0}
+        assert rec.peak > 0
+        light = dryrun.StepRecorder(fill=True, track=False)
+        with light:
+            assert torch.equal(all_gather_dim(shard, 0, group), g0)
+        assert light.calls == {"all-gather": 1} and light.peak == 0
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch,remat", [
+    ("qwen3_moe_30b_a3b", "none"), ("qwen3_moe_30b_a3b", "full"),
+    ("command_r_plus_104b", "none"), ("gemma3_12b", "selective"),
+    ("zamba2_2_7b", "none"), ("rwkv6_3b", "none"),
+    ("seamless_m4t_medium", "none")])
+def test_fsdp_train_step_holds_at_most_two_layers_gathered(arch, remat,
+                                                           monkeypatch):
+    """A smoke configuration at 6 layers on the fake group, ``fsdp=True``
+    (``cell_policy``), one traced train step of train_4k's 16 rows a rank
+    at S = 256 (the plain scans' loops are eager Python): the gathered
+    parameters
+    alive at once (``sharding.GATHERED``, every gathered leaf's storage,
+    forward and backward) never exceed two layers' worth; every layer's
+    leaves are gathered (more than one layer's worth in all)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.lm import _unstack, use_plans
+    from repro_torch.parallel import sharding
+    monkeypatch.setitem(SHAPES, "train_4k",
+                        dict(SHAPES["train_4k"], seq=256))
+    base = get_smoke_config(arch)
+    stack = "dec" if base.family == "encdec" else "layers"
+    cfg = base.derive(n_layers=6, n_dec_layers=6, n_enc_layers=2,
+                      remat=remat)
+    with dryrun.fake_world(256):
+        mesh = dryrun.make_production_mesh(device_type="cpu")
+        policy = dryrun.cell_policy(cfg, "train_4k")
+        assert policy.fsdp
+        with FakeTensorMode():
+            args = dryrun.rank_inputs(cfg, "train_4k", mesh, policy)
+            plans = use_plans(cfg, policy, mesh)
+            live = sharding.GATHERED.live
+            one = sharding.gather_tree(
+                _unstack(args["params"][stack], 6)[0], plans[stack])
+            layer = sharding.GATHERED.live - live
+            del one
+            sharding.GATHERED.reset()
+            start = sharding.GATHERED.live
+            rec = dryrun.StepRecorder()
+            rec.hold(args)
+            with rec:
+                dryrun.rank_step(cfg, "train_4k", args, mesh=mesh,
+                                 policy=policy)
+            peak = sharding.GATHERED.peak - start
+            assert rec.calls["all-gather"] > 6 * 2
+            assert rec.calls["reduce-scatter"] >= 6
+    assert layer > 0
+    assert peak <= 2 * layer, (peak, layer)
 
 
 def test_dryrun_and_perf_main_write_their_files(tmp_path, monkeypatch,
