@@ -2916,6 +2916,18 @@ DP_RULES = (("heads", None), ("kv_heads", None), ("mlp", None),
 DP_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=4, eps=1e-3)
 DP_ATOL, DP_LOSS_RTOL = 1e-5, 1e-5
 DP_TIMEOUT = 180.0
+#: the sequence-sharded decode (seq_shard: the KV caches' sequence over
+#: `data`, the batch replicated, as in the long_500k cells), gemma3 at
+#: full width, B = 1, a bf16 cache of random rows: on one card
+#: MESH1_SEQ's depth, cache rows and decode indexes, bf16, on a (1, 1)
+#: mesh against mesh=None, bitwise; on four cards SEQ_LAYERS layers (two
+#: global periods) in fp32 on a (4, 1) mesh, SEQ_S / 4 rows a card,
+#: decode steps at SEQ_STEPS (a write on each side of the first shard
+#: boundary, then the last row) against one card's whole cache
+MESH1_SEQ = (6, 8192, (4095, 8191))
+SEQ_LAYERS, SEQ_S = 12, 65536
+SEQ_STEPS = (16383, 16384, 65535)
+SEQ_TIMEOUT = 300.0
 
 
 def decoder_layer_fn(cfg, S: int, dev):
@@ -2950,6 +2962,69 @@ def layers_in_sequence(layer_fn, layers, n: int, x):
     return torch.stack(outs)
 
 
+def seq_policy():
+    """A long_500k cell's policy on a (data, model) mesh: the batch
+    replicated, the KV caches' sequence over `data`."""
+    from repro_torch.parallel.sharding import MeshPolicy
+    return MeshPolicy(seq_shard=True, rules=(("batch", None),))
+
+
+def seq_cache(cfg, S: int, seed: int, dev) -> dict:
+    """A whole bf16 KV cache of ``S`` rows, B = 1, of normal random rows
+    drawn from ``seed`` on ``dev`` (the same on every card)."""
+    from repro_torch.models import init_cache_specs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(s.shape, generator=gen, device=dev).to(
+        torch.bfloat16) for k, s in init_cache_specs(cfg, 1, S).items()}
+
+
+def seq_steps(params, cache, cfg, policy, mesh, dev, steps, seed) -> tuple:
+    """``decode_step_fn`` at each index of ``steps`` (tokens drawn from
+    ``seed``), the cache donated: the fp32 logits of each step and the
+    cache."""
+    from repro_torch.train.step import decode_step_fn
+    rng = np.random.default_rng(seed)
+    out = []
+    with torch.no_grad():
+        for idx in steps:
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, 1)).astype(np.int32))
+            logits, cache = decode_step_fn(
+                params, {"tokens": tok}, cache, idx, cfg=cfg, policy=policy,
+                mesh=mesh, use_kernels=True, device=dev)
+            out.append(logits[:, -1].float())
+    return out, cache
+
+
+def one_rank_seq(mesh, gen, dev) -> dict:
+    """gemma3 at MESH1_SEQ's depth, bf16, on the (1, 1) mesh under the
+    seq_shard policy (its sequence axis holds one rank: nothing splits)
+    against mesh=None: the decode steps' logits and caches bitwise
+    equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.parallel.sharding import seq_part
+    n, S, steps = MESH1_SEQ
+    cfg = get_config("gemma3_12b").derive(n_layers=n)
+    policy = seq_policy()
+    if seq_part(policy, mesh)[1] != 1:
+        raise AssertionError("(1, 1) mesh: the sequence split")
+    params = init_params(param_specs(cfg), gen, device=dev)
+    whole = seq_cache(cfg, S, 17, dev)
+    runs = [seq_steps(params, {k: v.clone() for k, v in whole.items()},
+                      cfg, policy, on, dev, steps, 17)
+            for on in (mesh, None)]
+    (a, ca), (b, cb) = runs
+    same = all(torch.equal(x, y) for x, y in zip(a, b)) and all(
+        torch.equal(ca[k], cb[k]) for k in ca)
+    if not same or not all(bool(torch.isfinite(x).all()) for x in a):
+        raise AssertionError("seq_shard on the (1, 1) mesh != mesh=None")
+    del params, whole, runs, ca, cb
+    torch.cuda.empty_cache()
+    return {"layers": n, "cache_rows": S, "steps": list(steps),
+            "policy": "seq_shard", "decode_bitwise_equal_to_no_mesh": True}
+
+
 def phase_mesh(seed: int, dev) -> dict:
     """Phase 16, the part every run makes: a one-rank NCCL group and
     ``make_host_mesh()``; a full-width qwen3-moe layer on that (1, 1) mesh
@@ -2958,8 +3033,9 @@ def phase_mesh(seed: int, dev) -> dict:
     (its shards whole), a forward and a train step against ``mesh=None``,
     bitwise and with the same launches; ``pipeline_apply`` with one stage
     against the layers in sequence, bitwise; the trainer's smoke
-    configuration, MESH1_TRAIN_STEPS steps on the mesh.  Returns the
-    line's results."""
+    configuration, MESH1_TRAIN_STEPS steps on the mesh; gemma3's decode
+    under the seq_shard policy on the mesh against ``mesh=None``, bitwise
+    (``one_rank_seq``).  Returns the line's results."""
     import io
     import tempfile
     from contextlib import redirect_stdout
@@ -3006,6 +3082,7 @@ def phase_mesh(seed: int, dev) -> dict:
                    moe_bitwise_equal_to_no_mesh=True)
         del p, x, on_mesh, bare
         res["dense"] = one_rank_dense(mesh, gen, dev)
+        res["seq_shard"] = one_rank_seq(mesh, gen, dev)
         # 2. the pipeline with one stage
         n, M, (B, S) = MESH1_PIPE
         q = get_config("qwen1_5_4b").derive(n_layers=n)
@@ -3638,6 +3715,194 @@ def tp_rank(rank: int, world: int, dev, seed: int) -> dict:
     return res
 
 
+class AttentionRecord:
+    """Wraps ``models.lm``'s ``attention_block`` for phase 16's
+    sequence-sharded check.  ``record`` keeps each call's input and
+    output; given ``xs`` and ``ys`` (a recorded run's), each call runs on
+    the recorded input, keeps its own output in ``got`` and returns the
+    recorded one, so the residual stream and the cache's later rows
+    follow the recorded run and each call's attention is held alone."""
+
+    def __init__(self, xs=None, ys=None):
+        import repro_torch.models.lm as lm
+        self.lm, self.real = lm, lm.attention_block
+        self.xs, self.ys = xs, ys
+        self.got, self.seen = [], []
+        lm.attention_block = self
+
+    def __call__(self, p, x, **kw):
+        if self.xs is None:
+            y, c = self.real(p, x, **kw)
+            self.seen.append((x.clone(), y.clone()))
+            return y, c
+        i = len(self.got)
+        y, c = self.real(p, self.xs[i], **kw)
+        self.got.append(y.clone())
+        return self.ys[i], c
+
+    def restore(self):
+        self.lm.attention_block = self.real
+
+
+def seq_rank(rank: int, world: int, dev, seed: int) -> dict:
+    """Phase 16's sequence-sharded decode, one of four ranks (NCCL, one
+    card a rank): gemma3 at full width, SEQ_LAYERS layers in fp32, on a
+    (4, 1) mesh under the seq_shard policy, this rank holding rows
+    ``[rank * SEQ_S / 4, (rank + 1) * SEQ_S / 4)`` of a bf16 cache of
+    random rows; decode steps at SEQ_STEPS, twice.  Free-running: every
+    rank's logits bitwise alike and finite; against one card's
+    whole-cache steps on rank 0, the gathered cache bitwise equal in the
+    rows no step wrote and in the first layer's written rows, the logits'
+    distance reported (the random weights' attention is nearly one-hot:
+    a rounding that flips a bf16 row compounds over the layers).
+    Teacher-forced (``AttentionRecord``): every attention call on one
+    card's recorded input, its output within NOISE_FLOOR of one card's by
+    relative L2 (an element may move more: the attention logits reach
+    hundreds, where one fp32 rounding of a logit shifts a near tie) and
+    bitwise alike on every rank, the stream continuing on one card's
+    output, so the logits and the whole gathered cache are bitwise one
+    card's.  Every check raises on the rank that fails it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.parallel.sharding import all_gather_list, seq_part
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    policy = seq_policy()
+    group, n, r = seq_part(policy, mesh)
+    if (n, r) != (world, rank):
+        raise AssertionError(f"seq_part: {n} ranks, index {r}")
+    cfg = get_config("gemma3_12b").derive(n_layers=SEQ_LAYERS,
+                                          dtype="float32")
+    params = init_params(param_specs(cfg), torch.Generator(
+        device=dev).manual_seed(seed + 26), device=dev)
+    whole = seq_cache(cfg, SEQ_S, seed + 27, dev)
+    rows = SEQ_S // world
+
+    def shard():
+        return {k: v[:, :, rank * rows:(rank + 1) * rows].clone()
+                for k, v in whole.items()}
+
+    def steps(cache, on):
+        return seq_steps(params, cache, cfg, policy, on, dev, SEQ_STEPS,
+                         seed + 28)
+
+    def gather(cache):
+        return {k: torch.cat(all_gather_list(v, group), 2)
+                for k, v in cache.items()}
+
+    def alike(t):
+        return all(torch.equal(t, o) for o in all_gather_list(t, group))
+
+    # 1. free-running
+    cache = shard()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    (logits, cache), t = timed(lambda: steps(cache, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    got = torch.stack(logits)
+    if not alike(got) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"seq rank {rank}: free-running logits not "
+                             f"alike or not finite")
+    free = gather(cache)
+    res = {"rank": rank, "mesh": [world, 1], "layers": SEQ_LAYERS,
+           "cache_rows": SEQ_S, "rows_a_card": rows,
+           "local_cache_shape": list(cache["k"].shape),
+           "steps": list(SEQ_STEPS), "steps_s": t, "peak_bytes": peak,
+           "logits_bitwise_equal_across_ranks": True}
+    del cache
+    written = torch.zeros(SEQ_S, dtype=torch.bool, device=dev)
+    written[list(SEQ_STEPS)] = True
+    # 2. one card, recorded
+    shape = (len(SEQ_STEPS) * SEQ_LAYERS, 1, 1, cfg.d_model)
+    xs = torch.empty(shape, device=dev)
+    ys = torch.empty(shape, device=dev)
+    if rank == 0:
+        rec = AttentionRecord()
+        try:
+            one, one_cache = steps({k: v.clone() for k, v in whole.items()},
+                                   None)
+        finally:
+            rec.restore()
+        xs.copy_(torch.stack([x for x, _ in rec.seen]))
+        ys.copy_(torch.stack([y for _, y in rec.seen]))
+        del rec
+        rows_err = {}
+        for k, v in free.items():
+            w = one_cache[k]
+            if not (torch.equal(v[:, :, ~written], w[:, :, ~written]) and
+                    torch.equal(v[0], w[0])):
+                raise AssertionError(f"seq cache {k}: rows not bitwise")
+            rows_err[k] = float((v[1:, :, written].float() -
+                                 w[1:, :, written].float()).abs().max())
+        res["free_running_vs_one_card"] = {
+            "logits_max_abs": [float((a - b).abs().max())
+                               for a, b in zip(logits, one)],
+            "one_card_logits_max_abs": [float(b.abs().max()) for b in one],
+            "same_argmax": [int(a.argmax()) == int(b.argmax())
+                            for a, b in zip(logits, one)],
+            "cache_bitwise": "rows no step wrote, the first layer's "
+                             "written rows",
+            "written_rows_past_layer_0_max_abs": rows_err}
+    del free
+    dist.broadcast(xs, 0, group=group)
+    dist.broadcast(ys, 0, group=group)
+    # 3. teacher-forced on the mesh
+    force = AttentionRecord(xs, ys)
+    try:
+        forced, cache = steps(shard(), mesh)
+    finally:
+        force.restore()
+    att = torch.stack(force.got)
+    if not alike(att):
+        raise AssertionError(f"seq rank {rank}: attention outputs differ "
+                             f"across ranks")
+    forced_cache = gather(cache)
+    del cache
+    if rank == 0:
+        rel = [rel_l2(a, b) for a, b in zip(att, ys)]
+        if max(rel) > NOISE_FLOOR:
+            raise AssertionError(f"seq attention: relative L2 {max(rel)} "
+                                 f"over {NOISE_FLOOR}")
+        if not (all(torch.equal(a, b) for a, b in zip(forced, one)) and
+                all(torch.equal(forced_cache[k], one_cache[k])
+                    for k in one_cache)):
+            raise AssertionError("seq teacher-forced: logits or cache != "
+                                 "one card's")
+        res["teacher_forced_vs_one_card"] = {
+            "attention_calls": att.shape[0],
+            "attention_rel_l2_max": max(rel),
+            "attention_max_abs": float((att - ys).abs().max()),
+            "attention_out_max_abs": float(ys.abs().max()),
+            "attention_rel_l2_tol": NOISE_FLOOR,
+            "logits_and_cache_bitwise_equal": True}
+        log(f"phase16 seq rank 0 against one card: "
+            f"{json.dumps(res['free_running_vs_one_card'])}; "
+            f"{json.dumps(res['teacher_forced_vs_one_card'])}")
+        del one_cache
+    del params, whole, forced_cache, xs, ys, att
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def spawn_seq(seed: int) -> dict:
+    """``seq_rank`` on EP_RANKS spawned ranks; rank 0's result, every
+    rank's step time and peak."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(seq_rank, EP_RANKS, seed, store_dir=d,
+                            device_type="cuda", timeout=SEQ_TIMEOUT)
+    zero = dict(ranks[0])
+    zero["every_rank"] = [{"rank": r["rank"], "steps_s": r["steps_s"],
+                           "peak_bytes": r["peak_bytes"]} for r in ranks]
+    return zero
+
+
 def spawn_tp(seed: int) -> dict:
     """``tp_rank`` on EP_RANKS spawned ranks; rank 0's result, every
     rank's step times and peaks."""
@@ -3664,9 +3929,10 @@ def spawn_dp(seed: int) -> dict:
 def phase_mesh4(seed: int) -> list:
     """Phase 16's four-card part, when EP_RANKS cards are visible: EP_RANKS
     ranks spawned (NCCL, one card each) run ``ep_rank``, then ``dp_rank``,
-    then ``tp_rank``, each on ranks of their own; returns gmm's EP row and
-    flash's row on the tensor-parallel FSDP training path for the
-    kernels' line, or nothing when it did not run."""
+    then ``tp_rank``, then ``seq_rank``, each on ranks of their own;
+    returns gmm's EP row and flash's row on the tensor-parallel FSDP
+    training path for the kernels' line, or nothing when it did not
+    run."""
     import tempfile
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import spawn_ranks
@@ -3689,6 +3955,7 @@ def phase_mesh4(seed: int) -> list:
             timeout=EP_TIMEOUT))
     dp, t_dp = timed(lambda: spawn_dp(seed))
     tp, t_tp = timed(lambda: spawn_tp(seed))
+    seq, t_seq = timed(lambda: spawn_seq(seed))
     zero = ranks[0]
     log(f"phase16 qwen3_moe_30b_a3b, {zero['layers']} layers over "
         f"{EP_RANKS} cards "
@@ -3714,6 +3981,8 @@ def phase_mesh4(seed: int) -> list:
         f"wall_s={t_dp:.1f}")
     log(f"phase16 tensor parallel + FSDP: {json.dumps(tp)}; spawn to end "
         f"wall_s={t_tp:.1f}")
+    log(f"phase16 sequence-sharded decode: {json.dumps(seq)}; spawn to end "
+        f"wall_s={t_seq:.1f}")
     return [zero["gmm_row"], tp["flash_row"]]
 
 
@@ -3735,6 +4004,11 @@ DRYRUN_OVER_BEFORE = ("qwen2_vl_7b", "mixtral_8x22b", "command_r_plus_104b",
                       "zamba2_2_7b", "seamless_m4t_medium")
 DRYRUN_KEPT = (("qwen3_moe_30b_a3b", "prefill_32k"),
                ("qwen3_moe_30b_a3b", "decode_32k"))
+#: the long_500k decode cells (B = 1, the KV caches' sequence over `data`:
+#: 32,768 of 524,288 rows a rank), run after DRYRUN_KEPT; each must fit.
+#: Mixtral's rank runs the MoE tensor-parallel route (gmm), gemma3's 40
+#: local and 8 global layers over the split cache
+DRYRUN_LONG = (("mixtral_8x22b", "long_500k"), ("gemma3_12b", "long_500k"))
 #: rows of each launch held to the plain version: the first and the last
 #: DRYRUN_ROWS query rows of every flash launch (the last see every key),
 #: the first and the last DRYRUN_ROWS rows of every expert of every gmm
@@ -3846,7 +4120,7 @@ def dryrun_cells() -> list:
     """Phase 17's cells: the dry run's prediction of rank 0 (16x16 mesh)
     for each prefill_32k cell of DRYRUN_OVER_BEFORE in ARCHS order, the
     first whose predicted executed peak is under DRYRUN_LIMIT, then the
-    DRYRUN_KEPT cells (each must fit)."""
+    DRYRUN_KEPT and DRYRUN_LONG cells (each must fit)."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.dryrun import run_cell
 
@@ -3865,7 +4139,7 @@ def dryrun_cells() -> list:
             break
     else:
         raise AssertionError("phase17: no cell of DRYRUN_OVER_BEFORE fits")
-    for arch, shape in DRYRUN_KEPT:
+    for arch, shape in DRYRUN_KEPT + DRYRUN_LONG:
         pred, fits = predict(arch, shape)
         if not fits:
             raise AssertionError(f"phase17: {arch} x {shape} does not fit")
@@ -3884,10 +4158,18 @@ def dryrun_rank(pred: dict, cfg, seed: int, dev, smi: str) -> dict:
     too).  Then each kernel's first launch timed alone, and a warm call
     (the collectives write nothing there and take no time): its device
     time by CUDA events against the roofline's bound, and its peak
-    against the predicted executed peak.  Returns the line's object."""
+    against the predicted executed peak.  A serving step writes the cache
+    in place (it is donated): each call writes the same row again.  Under
+    ``seq_shard`` (long_500k) the rank's KV cache leaves must hold
+    ``seq / data`` rows; every "rank" of the fake group then holds this
+    one's partial softmaxes (the fill), which at the last index hold no
+    key inside a local layer's window: the fill's -1e30 keeps that
+    finite.  Returns the line's object."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun
     from repro_torch.launch.inputs import cell_policy
+    from repro_torch.parallel.sharding import mesh_shape
     arch, shape = pred["arch"], pred["shape"]
     with dryrun.fake_world(256):
         mesh = dryrun.make_production_mesh(device_type="cpu")
@@ -3895,6 +4177,15 @@ def dryrun_rank(pred: dict, cfg, seed: int, dev, smi: str) -> dict:
         args = dryrun.rank_inputs(cfg, shape, mesh, policy, device=dev,
                                   seed=seed)
         cache = args.get("cache")
+        cache_local = {} if cache is None else {
+            k: list(v.shape) for k, v in cache.items()}
+        if policy.seq_shard:
+            rows = SHAPES[shape]["seq"] // mesh_shape(mesh)["data"]
+            kv = {k: v[2] for k, v in cache_local.items()
+                  if k in ("k", "v", "shared_k", "shared_v")}
+            if not kv or set(kv.values()) != {rows}:
+                raise AssertionError(f"phase17 {arch} x {shape}: cache "
+                                     f"rows {kv}, want {rows} a rank")
 
         def step():
             if cache is not None:
@@ -3950,6 +4241,7 @@ def dryrun_rank(pred: dict, cfg, seed: int, dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"card": smi, "cell": f"{arch} x {shape}", "mesh": pred["mesh"],
             "rank": 0, "layers": cfg.n_layers,
+            "seq_shard": policy.seq_shard, "cache_local": cache_local,
             "predicted": {"memory": mem, "roofline": rl,
                           "flops": want["flops"],
                           "collectives_by_kind": want["collectives_by_kind"]},

@@ -3,8 +3,10 @@ the phases named on the command line (all of them by default):
 
   16     phase 16's one-card part (``phase_mesh``)
   17     phase 17 (``phase_dryrun``)
-  16x4   phase 16's four-card part (``phase_mesh4``: EP, DP, TP+FSDP)
+  16x4   phase 16's four-card part (``phase_mesh4``: EP, DP, TP+FSDP,
+         the sequence-sharded decode)
   16x4tp only its tensor-parallel FSDP part (``spawn_tp``)
+  16x4seq only its sequence-sharded decode (``spawn_seq``)
 
   python3 scripts/chip_phases.py 16 17
 """
@@ -42,6 +44,11 @@ if __name__ == "__main__":
         C.log(f"phase16 four-card part {time.perf_counter() - t:.1f} s")
         import json
         print(json.dumps({"rows": rows}), flush=True)
+    if "16x4seq" in parts:
+        import json
+        res, t = C.timed(lambda: C.spawn_seq(0))
+        C.log(f"phase16 seq: {json.dumps(res)}; spawn to end "
+              f"wall_s={t:.1f}")
     if "16x4tp" in parts:
         import json
         res, t = C.timed(lambda: C.spawn_tp(0))

@@ -20,9 +20,10 @@ or the 2x16x16 mesh (512 ranks, ``--multipod``):
      ``parallel.sharding.storage_pspecs`` of the cell's policy: heads, kv
      heads, MLP, vocabulary and experts over `model`, the `embed`
      dimension over `data` under FSDP, the batch's rows and the cache's
-     over the batch's mesh axes), the reference's layout but for the
-     long_500k cells' caches, which the port keeps whole along the
-     sequence (no ``seq_shard``).  The kernels
+     over the batch's mesh axes, and under ``seq_shard`` (the long_500k
+     cells, B = 1) the KV caches' sequence over `data`: each rank holds
+     its rows and the decode combines the ranks' partial softmaxes), the
+     reference's layout in every cell.  The kernels
      (flash attention, gmm, the SSD and WKV scans) are dispatcher ops
      (``kernels.*.ops``): under the trace each gives its output's shape,
      as the kernel allocates it, and nothing of its plain version runs.
@@ -39,8 +40,9 @@ or the 2x16x16 mesh (512 ranks, ``--multipod``):
          bytes that rank 0's traced step holds beyond its arguments (each
          storage counted from the op that makes it until it is freed);
        * ``executed_peak_bytes_per_device``: the port's arguments (its
-         storage layout, the reference's but for the long_500k caches)
-         plus that peak, what rank 0 needs on its card, against 80 GB.
+         storage layout, the reference's) plus that peak, what rank 0
+         needs on its card, against 80 GB.  The serving steps write the
+         donated cache in place, so it is held once.
   3. **cost**: ``torch.utils.flop_counter.FlopCounterMode`` over the
      traced step gives ``per_device["flops"]`` (``cost_raw["flops"]``
      with ``--fast``).  Eager tracing visits every layer, so the count is
@@ -60,7 +62,8 @@ or the 2x16x16 mesh (512 ranks, ``--multipod``):
      embedding and loss, FSDP's all-gathers (forward and backward) and
      reduce-scatters, the MoE routes' all-to-alls (EP) and all-reduces
      (TP), the data-parallel gradient all-reduce, the clip norm's
-     all-reduces; not GSPMD's.  Recorded as ``collectives_by_kind`` and,
+     all-reduces, the sequence-sharded decode's all-gather of partial
+     softmaxes; not GSPMD's.  Recorded as ``collectives_by_kind`` and,
      weighted by :func:`weighted_collective_bytes`,
      ``collective_bytes_recorded``.
   5. **roofline**: compute from the counted FLOPs (``--fast``: the model
@@ -155,13 +158,16 @@ def _nbytes(t: torch.Tensor) -> int:
 #: ops that read a tensor's shape and not its values
 _SHAPE_ONLY = ("zeros_like", "empty_like", "ones_like", "full_like",
                "new_zeros", "new_empty", "new_ones", "new_full")
+#: ops that overwrite their first argument and read only the others
+_OVERWRITE = ("copy_", "fill_", "zero_")
 
 
 class StepRecorder(TorchDispatchMode):
     """A dispatch mode over one step of this rank: the result bytes of
     each collective by kind, the live bytes of the storages the step
     makes (their peak), and the storages whose values some op reads (a
-    view, ``zeros_like`` or a query of the device reads none).
+    view, ``zeros_like`` or a query of the device reads none; ``copy_``
+    reads its source, not the rows it writes).
     :meth:`hold` marks the arguments' storages, which are not counted.
 
     With ``fill`` (a step run on the card over the fake group, which
@@ -169,10 +175,13 @@ class StepRecorder(TorchDispatchMode):
     if every rank of its group held this rank's tensor: an all-reduce
     (sum) gives ``size`` times the tensor, an all-to-all this rank's own
     chunk from every source, a reduce-scatter ``size`` times this rank's
-    own chunk; an all-gather this rank's shard in its own slot and, in
-    slot ``j``, the shard's elements rotated by ``j`` (gathered weights
-    that repeat a shard would tie every choice a router makes among them);
-    so every value the step computes is finite.  Any other collective
+    own chunk, an all-gather into a list (``sharding.all_gather_list``:
+    the partial softmaxes of a sequence-sharded decode) this rank's tensor
+    in every slot; an all-gather into one tensor (the gathered weights)
+    this rank's shard in its own slot and, in slot ``j``, the shard's
+    elements rotated by ``j`` (gathered weights that repeat a shard would
+    tie every choice a router makes among them); so every value the step
+    computes is finite.  Any other collective
     then raises.  ``track=False`` keeps only the collectives (their fill
     and counts): no storages, no reads."""
 
@@ -218,8 +227,9 @@ class StepRecorder(TorchDispatchMode):
             return out
         if not func.is_view and func._opname not in _SHAPE_ONLY and \
                 func.namespace != "prim":           # prim.device, ...
+            inputs = args[1:] if func._opname in _OVERWRITE else args
             self.read.update(t.untyped_storage()._cdata
-                             for t in _tensors((args, kwargs)))
+                             for t in _tensors((inputs, kwargs)))
         for t in _tensors(out):
             self._track(t)
         return out
@@ -239,6 +249,10 @@ class StepRecorder(TorchDispatchMode):
         if name == "allreduce_":
             for t in result:
                 t.mul_(size)
+        elif name == "allgather_":
+            for slots, inp in zip(args[0], args[1]):
+                for t in slots:
+                    t.copy_(inp)
         elif name == "_allgather_base_":
             out, inp = args[0], args[1].reshape(-1)
             slots = out.view(size, -1)
@@ -344,19 +358,19 @@ def rank_inputs(cfg: ModelConfig, shape_name: str, mesh: Any,
     deviation), ``opt_state`` (train: the moments as
     their parameters), ``batch`` (its rows: tokens and labels uniform
     over the vocabulary, embeddings normal), ``cache`` (zeros, as its
-    axes split it, the sequence whole) and ``index`` (decode: the cache's
-    last position, a Python int).  Under ``FakeTensorMode`` every tensor
-    is fake."""
+    axes split it: under ``seq_shard`` this rank's rows of the sequence)
+    and ``index`` (decode: the cache's last position, a Python int).
+    Under ``FakeTensorMode`` every tensor is fake."""
     sh = SHAPES[shape_name]
     kind = sh["kind"]
 
     def fan_in(shape: tuple) -> int:
         return max(1, shape[-2] if len(shape) >= 2 else shape[-1])
 
-    def local(s: ParamSpec, pol: MeshPolicy = policy) -> ParamSpec:
+    def local(s: ParamSpec) -> ParamSpec:
         """The shard's spec, its law the whole leaf's (``init_params``
         divides by the fan-in of the shape it draws)."""
-        shape = local_shape(s.shape, storage_pspecs(s, pol, mesh), mesh)
+        shape = local_shape(s.shape, storage_pspecs(s, policy, mesh), mesh)
         return dataclasses.replace(s, shape=shape, scale=s.scale * math.sqrt(
             fan_in(shape) / fan_in(s.shape)))
 
@@ -383,9 +397,8 @@ def rank_inputs(cfg: ModelConfig, shape_name: str, mesh: Any,
         c_abs, c_axes = cache_abstract(cfg, shape_name,
                                        kv_len=kv_len_override
                                        if kind == "decode" else None)
-        whole_seq = policy.with_rules(kv_seq=None)
         out["cache"] = {k: torch.zeros(local(ParamSpec(
-            tuple(v.shape), c_axes[k]), whole_seq).shape, dtype=v.dtype,
+            tuple(v.shape), c_axes[k])).shape, dtype=v.dtype,
             device=device) for k, v in c_abs.items()}
         if kind == "decode":
             out["index"] = (kv_len_override or sh["seq"]) - 1
@@ -397,8 +410,9 @@ def rank_step(cfg: ModelConfig, shape_name: str, args: Dict[str, Any], *,
               device: Any = "cpu") -> Any:
     """This rank's step of the cell on :func:`rank_inputs`' ``args``,
     through the kernels (``use_kernels``).  A serving step takes the cache
-    out of ``args`` (the reference donates it); a train step updates
-    ``params`` and ``opt_state`` in place (it donates them)."""
+    out of ``args`` and writes it in place (the reference donates it); a
+    train step updates ``params`` and ``opt_state`` in place (it donates
+    them)."""
     kind = SHAPES[shape_name]["kind"]
     kw = dict(cfg=cfg, policy=policy, mesh=mesh, use_kernels=True,
               device=device)

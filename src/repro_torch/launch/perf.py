@@ -9,8 +9,12 @@ Variants (the §Perf iteration levers):
   serve_replicated — decode/prefill with fsdp=False: weights replicated
                      over `data`, sharded over `model` only. Kills the
                      per-step FSDP param all-gather that dominates decode.
-  seq_parallel     — shard long-context KV over `data` AND activations'
-                     sequence axis between TP blocks.
+  seq_parallel     — the KV caches' sequence over `data` (``kv_seq``;
+                     activations' ``seq`` stays whole), where the batch
+                     leaves `data` free: each rank holds its rows of the
+                     cache and the decode combines the ranks' partial
+                     softmaxes (``models.layers.attention_block``), as
+                     the long_500k cells' ``seq_shard`` does.
   ring_kv          — window-bounded KV cache for uniform-sliding-window
                      archs (mixtral): cache length = window, not seq_len.
   microbatch4      — gradient accumulation over 4 microbatches (activation

@@ -15,11 +15,18 @@ row-parallel), the embedding and the head the vocabulary; the partial
 sums are added by one all-reduce where the reference constrains to
 ``act_embed`` (``reduce_over``), and every replicated input of a split
 region enters through ``from_replicated``.  Without a mesh, or where
-nothing splits, the code is what it was: the same operations.  All functions are pure: the KV cache
-comes back as new tensors, as in the reference.  Where the reference asks
-for an fp32 result from bf16 operands (``preferred_element_type``), the
-operands are upcast to fp32 first: their products are exact in fp32, so
-the result is the reference's up to the order of the sums.
+nothing splits, the code is what it was: the same operations.  All
+functions are pure but one: :func:`attention_block` writes the new rows
+into the KV cache it is given and returns that cache (``models.lm.
+forward`` hands it a copy unless the caller donates the cache, as the
+reference's serving steps donate theirs).  Under ``seq_shard`` the cache
+holds this rank's rows of the sequence only (``parallel.sharding.
+seq_part``): a decode writes the new row where it falls and combines the
+ranks' partial softmaxes (:func:`_sdpa_over_shards`).  Where the
+reference asks for an fp32 result from bf16 operands
+(``preferred_element_type``), the operands are upcast to fp32 first:
+their products are exact in fp32, so the result is the reference's up
+to the order of the sums.
 """
 from __future__ import annotations
 
@@ -29,8 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import (MeshPolicy, from_replicated, model_part,
-                                 reduce_over, shard_constraint)
+from ..parallel.sharding import (MeshPolicy, all_gather_list,
+                                 from_replicated, model_part, reduce_over,
+                                 seq_part, shard_constraint)
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -234,14 +242,81 @@ def causal_mask(Sq: int, Sk: int, *, window: Optional[int] = None,
     return m[None]
 
 
-def _write_rows(cache: torch.Tensor, new: torch.Tensor, start: int
-                ) -> torch.Tensor:
-    """``jax.lax.dynamic_update_slice`` on axis 1: a copy of ``cache`` with
-    ``new`` written from ``start`` on, the start clamped so the rows fit."""
-    start = min(max(int(start), 0), cache.shape[1] - new.shape[1])
-    out = cache.clone()
-    out[:, start:start + new.shape[1]] = new.to(cache.dtype)
-    return out
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, start: int,
+                first: int = 0, total: Optional[int] = None) -> None:
+    """``jax.lax.dynamic_update_slice`` on axis 1, in place: ``new``
+    written from global row ``start`` on, the start clamped so that the
+    rows fit in ``total`` rows (the whole cache's length; ``cache``'s own
+    by default).  ``cache`` holds the global rows ``first .. first +
+    cache.shape[1]`` (a sequence shard): only the rows of ``new`` that
+    fall there are written."""
+    n = new.shape[1]
+    total = cache.shape[1] if total is None else total
+    start = min(max(int(start), 0), total - n)
+    lo = max(start, first)
+    hi = min(start + n, first + cache.shape[1])
+    if lo < hi:
+        cache[:, lo - first:hi - first].copy_(new[:, lo - start:hi - start])
+
+
+def _partial_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, softcap: Optional[float]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_sdpa`'s softmax over these keys only, unnormalised, fp32:
+    ``(m, l, o)``, the logits' max ``[B, KV, G, Sq]``, the sum of their
+    exponentials about it and the weighted values ``[B, KV, G, Sq, hd]``.
+    The logits are scaled, capped and filled with ``-1e30`` where masked
+    as :func:`_sdpa` does, so a shard with no valid key has a finite
+    ``m`` of -1e30 and gets no weight beside one that has."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    logits = logits / math.sqrt(hd)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+    m = logits.amax(-1)
+    p = torch.exp(logits - m[..., None])
+    return m, p.sum(-1), torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
+
+
+def _combine_partials(parts: list) -> torch.Tensor:
+    """Partial softmaxes over disjoint sets of keys, each ``(m, l, o)``
+    of :func:`_partial_softmax` packed along the last axis ``[B, KV, G,
+    Sq, hd + 2]``, combined in list order: ``M = max m_r``, ``w_r =
+    exp(m_r - M)``, ``O = sum w_r o_r / sum w_r l_r`` (fp32, ``[B, KV, G,
+    Sq, hd]``).  A part whose keys were all masked (``m_r = -1e30``) gets
+    weight 0 beside one with a valid key; where none has one, every part
+    weighs 1, as :func:`_sdpa`'s softmax over a row of fills does."""
+    top = parts[0][..., 0]
+    for t in parts[1:]:
+        top = torch.maximum(top, t[..., 0])
+    num = den = None
+    for t in parts:
+        w = torch.exp(t[..., 0] - top)
+        wo, wl = w[..., None] * t[..., 2:], w * t[..., 1]
+        num = wo if num is None else num + wo
+        den = wl if den is None else den + wl
+    return num / den[..., None]
+
+
+def _sdpa_over_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor, softcap: Optional[float],
+                      group: Any) -> torch.Tensor:
+    """:func:`_sdpa` over keys split along the sequence over ``group``
+    (``k``/``v``/``mask`` this rank's rows): each rank's
+    :func:`_partial_softmax`, one all-gather of the packed ``(m, l, o)``,
+    and on every rank :func:`_combine_partials` in rank order, cast to
+    ``v``'s dtype.  Every rank combines the same gathered values in the
+    same order, so every rank's output is bitwise alike (the batch is
+    replicated over the group in these cells)."""
+    B, Sq, H, hd = q.shape
+    m, l, o = _partial_softmax(q, k, v, mask, softcap)
+    packed = torch.cat([m[..., None], l[..., None], o], -1)
+    out = _combine_partials(all_gather_list(packed, group))
+    out = out.permute(0, 3, 1, 2, 4)                      # [B,Sq,KV,G,hd]
+    return out.reshape(B, Sq, H, hd).to(v.dtype)
 
 
 def kv_selection(n_heads: int, n_kv: int, heads_here: int, rank: int
@@ -308,6 +383,17 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
     cache. `is_global` may be a bool tensor (mixed local/global layers,
     gemma3): local layers apply the sliding-window mask.
 
+    The new rows are written into ``cache`` itself (``copy_``, the
+    reference's ``dynamic_update_slice`` and clamp on the global index),
+    which comes back as the new cache; a prefill writes rows ``[0, Sq)``
+    and zeros after them (the reference's pad).  Where the policy splits
+    the cache's sequence over a mesh axis (:func:`~repro_torch.parallel.
+    sharding.seq_part`), this rank holds the rows ``[r * S_loc, (r + 1)
+    * S_loc)``:
+    a row is written by the rank that holds it, the masks read global
+    positions, and the decode's softmax is combined across the ranks
+    (:func:`_sdpa_over_shards`; no autograd through that gather).
+
     ``use_kernels`` is the reference's ``use_pallas``: prefill attention
     goes through ``kernels.flash_attention.ops.flash_attention`` (the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors).  As in the
@@ -340,23 +426,31 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
     read = pick or (lambda t: t)
 
     window = cfg.sliding_window
-    new_cache = cache
+    # this rank's rows of the cache: all of them unless its sequence is
+    # split over a mesh axis (seq_shard)
+    seq_group, n_seq, seq_rank = seq_part(policy, mesh)
     if cache is not None and cache_index is not None:
         # decode: write k/v at cache_index, attend over the cache
         idx = int(cache_index)
-        ck = _write_rows(cache["k"], k, idx)
-        cv = _write_rows(cache["v"], v, idx)
-        new_cache = {"k": ck, "v": cv}
-        Sk = ck.shape[1]
-        kpos = torch.arange(Sk, device=x.device)[None, :]
+        ck, cv = cache["k"], cache["v"]
+        S_loc = ck.shape[1]
+        first, Sk = seq_rank * S_loc, S_loc * n_seq
+        _write_rows(ck, k, idx, first, Sk)
+        _write_rows(cv, v, idx, first, Sk)
+        kpos = torch.arange(first, first + S_loc, device=x.device)[None, :]
         valid = kpos <= idx                              # causal over cache
         wmask = torch.where(torch.as_tensor(is_global, device=x.device),
-                            torch.ones((1, Sk), dtype=torch.bool,
+                            torch.ones((1, S_loc), dtype=torch.bool,
                                        device=x.device),
                             kpos > idx - (window or Sk))
-        mask = (valid & wmask)[:, None, :]               # [1,1,Sk]
-        out = _sdpa(q, read(ck).to(q.dtype), read(cv).to(q.dtype),
-                    mask.expand(B, Sq, Sk), cfg.logit_softcap)
+        mask = (valid & wmask)[:, None, :].expand(B, Sq, S_loc)
+        kk, vv = read(ck).to(q.dtype), read(cv).to(q.dtype)
+        if seq_group is None:
+            out = _sdpa(q, kk, vv, mask, cfg.logit_softcap)
+        else:
+            out = _sdpa_over_shards(q, kk, vv, mask, cfg.logit_softcap,
+                                    seq_group)
+        del kk, vv
     else:
         ka, va = read(k), read(v)
         if use_kernels:
@@ -383,15 +477,16 @@ def attention_block(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                         cfg.logit_softcap)
         del ka, va
         if cache is not None:                            # prefill fills cache
-            ck = torch.zeros_like(cache["k"])
-            cv = torch.zeros_like(cache["v"])
-            ck[:, :Sq] = k
-            cv[:, :Sq] = v
-            new_cache = {"k": ck, "v": cv}
+            S_loc = cache["k"].shape[1]
+            first = seq_rank * S_loc
+            for name, new in (("k", k), ("v", v)):
+                _write_rows(cache[name], new, 0, first, S_loc * n_seq)
+                # the reference pads with zeros: the rows from Sq on
+                cache[name][:, max(0, Sq - first):].zero_()
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     y = reduce_over(y, group)
     y = shard_constraint(y, ("batch", "seq", "act_embed"), policy, mesh)
-    return y, new_cache
+    return y, cache
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ Families:
 Interface (pure functions, the reference's names and parameter trees):
   param_specs(cfg)                      -> ParamSpec tree
   init_cache_specs(cfg, B, S_max)       -> ParamSpec-like tree for caches
-  forward(params, batch, cfg=..., ...)  -> (logits, new cache)
+  forward(params, batch, cfg=..., ...)  -> (logits, new cache; written
+                                           into a copy of the cache, or
+                                           into its own storage with
+                                           donate_cache)
   loss_fn(params, batch, cfg=..., ...)  -> scalar loss
 
 The reference scans over stacked layers (``jax.lax.scan``); here a Python
@@ -37,11 +40,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel.sharding import (Gather, MeshPolicy, _names, batch_mesh_axes,
+from ..parallel.sharding import (KV_CACHE_AXES, Gather, MeshPolicy, _names,
+                                 all_gather_dim, batch_mesh_axes,
                                  gather_tree, mesh_shape, model_part,
-                                 reduce_over,
-                                 regather_saved, shard_constraint,
-                                 storage_pspecs)
+                                 reduce_over, regather_saved,
+                                 shard_constraint, storage_pspecs)
 from .config import ModelConfig
 from .layers import (_sdpa, _tp_heads, apply_norm, apply_rope,
                      attention_block, attn_specs, embed, embed_specs,
@@ -206,9 +209,8 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def _kv_specs(L: int, B: int, S_max: int, cfg: ModelConfig
               ) -> Dict[str, ParamSpec]:
     shape = (L, B, S_max, cfg.n_kv_heads, cfg.hd)
-    axes = ("layers", "batch", "kv_seq", "kv_heads", None)
-    return {"k": ParamSpec(shape, axes, "zeros"),
-            "v": ParamSpec(shape, axes, "zeros")}
+    return {"k": ParamSpec(shape, KV_CACHE_AXES, "zeros"),
+            "v": ParamSpec(shape, KV_CACHE_AXES, "zeros")}
 
 
 def init_cache_specs(cfg: ModelConfig, B: int, S_max: int) -> Any:
@@ -292,17 +294,31 @@ def _decoder_stack(params: Dict[str, Any], x: torch.Tensor, *,
         return out, new_cache
 
     layer = _maybe_remat(layer, cfg)
-    new_k, new_v = [], []
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        # layer i's rows of the stacked cache: written where they lie
         layer_cache = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i]}
-        x, new_cache = layer(x, lp, flags[i], layer_cache)
-        if cache is not None:
-            new_k.append(new_cache["k"])
-            new_v.append(new_cache["v"])
-    if cache is None:
-        return x, None
-    return x, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+        x, _ = layer(x, lp, flags[i], layer_cache)
+    return x, cache
+
+
+def _store(cache: Dict[str, torch.Tensor], key: str, i: int,
+           new: torch.Tensor, promoted: Dict[str, list]) -> None:
+    """Layer ``i``'s new state ``new`` of the stacked ``cache[key]``:
+    written into the cache's own storage where it has the leaf's dtype;
+    else kept in ``promoted[key]``, to be stacked into a new leaf (the
+    reference's new state is promoted there: a bf16 state stepped in
+    fp32 comes back fp32, and XLA aliases no donated buffer of another
+    type either)."""
+    if new.dtype == cache[key].dtype:
+        cache[key][i].copy_(new)
+    else:
+        promoted.setdefault(key, []).append(new)
+
+
+def _with_promoted(cache: Dict[str, torch.Tensor],
+                   promoted: Dict[str, list]) -> Dict[str, torch.Tensor]:
+    return {**cache, **{k: torch.stack(v) for k, v in promoted.items()}}
 
 
 def _embed(params, plans, tokens, *, cfg, policy, mesh, dtype):
@@ -365,9 +381,18 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
             cfg: ModelConfig, policy: MeshPolicy = MeshPolicy(),
             mesh: Any = None, cache: Optional[Any] = None,
             cache_index: Any = None, use_kernels: bool = False,
-            device: Union[str, torch.device, None] = None
-            ) -> Tuple[torch.Tensor, Any]:
+            device: Union[str, torch.device, None] = None,
+            donate_cache: bool = False) -> Tuple[torch.Tensor, Any]:
     """Returns (logits, new_cache). Train/prefill: cache_index None.
+
+    The new cache is written into a copy of ``cache``, which the caller
+    keeps as it was (the reference's functional meaning).  With
+    ``donate_cache`` the caller hands the cache over, as the reference's
+    serving steps donate theirs (``donate_argnums``): each layer's new
+    rows and states are written into its storage, and the new cache is
+    that storage (a state whose new dtype is not its leaf's comes back as
+    a new leaf, see ``_store``); the caller's tensors then hold the new
+    cache.
 
     Runs on the card unless ``device="cpu"`` is asked for; the parameters
     (and the cache) must already be there, the batch's arrays (tokens,
@@ -378,7 +403,9 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
     kernel and rwkv6 the WKV kernel; their plain versions on the CPU.
 
     On a mesh, ``params`` and ``cache`` are this rank's shards and the
-    logits this rank's slice of the vocabulary (module docstring)."""
+    logits this rank's slice of the vocabulary (module docstring); under
+    ``seq_shard`` the KV caches hold this rank's rows of the sequence
+    (``models.layers.attention_block``)."""
     dev = resolve_device(device)
     where = params["embed"]["tok"].device
     if where.type != dev.type:
@@ -388,6 +415,8 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
              for k, v in batch.items()}
     fwd = {"ssm": _rwkv_forward, "hybrid": _hybrid_forward,
            "encdec": _encdec_forward}.get(cfg.family, _decoder_forward)
+    if cache is not None and not donate_cache:
+        cache = tree_map(torch.clone, cache)
     plans = use_plans(cfg, policy, mesh)
     with regather_saved(plans is not None):
         return fwd(params, batch, cfg=cfg, policy=policy, mesh=mesh,
@@ -412,7 +441,10 @@ def _rwkv_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
                   cache_index=None, use_kernels=False, plans=None):
     """The reference's ``_rwkv_forward``; its norms are ``rmsnorm`` with
-    the layernorm's ``scale`` (see ``models/rwkv6.py``)."""
+    the layernorm's ``scale`` (see ``models/rwkv6.py``).  The time mix
+    runs whole heads on every rank (``_whole_on_use``): where the cache
+    stores the WKV state's heads split over `model`, each layer's state is
+    gathered over `model` for it and this rank's heads written back."""
     from .layers import rmsnorm
     tokens = batch["tokens"]
     dtype = getattr(torch, cfg.dtype)
@@ -420,12 +452,18 @@ def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
                dtype=dtype)
     decode = cache_index is not None
     stateful = cache is not None or decode
-    new = {"wkv": [], "shift_a": [], "shift_f": []}
+    promoted: Dict[str, list] = {}
     layer_plans = _sub(plans, "layers")
+    group, _, rank = model_part(mesh)
+    heads = cache["wkv"].shape[2] if stateful else 0
+    split = stateful and heads < cfg.d_model // cfg.rwkv_head_dim
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         if layer_plans is not None:
             lp = gather_tree(lp, layer_plans)
-        st = {key: cache[key][i] for key in new} if stateful else None
+        st = {key: cache[key][i] for key in ("wkv", "shift_a", "shift_f")} \
+            if stateful else None
+        if split:
+            st["wkv"] = all_gather_dim(st["wkv"], 1, group)
         h = rmsnorm(x, lp["ln1"]["scale"], cfg.norm_eps)
         a, st_a = rwkv6_att(lp["att"], h, cfg=cfg, policy=policy, mesh=mesh,
                             state=st, decode=decode, use_kernels=use_kernels)
@@ -435,11 +473,13 @@ def _rwkv_forward(params, batch, *, cfg, policy, mesh, cache=None,
                               mesh=mesh, state=st)
         x = x + f
         if stateful:
-            new["wkv"].append(st_a["wkv"])
-            new["shift_a"].append(st_a["shift_a"])
-            new["shift_f"].append(new_sf)
-    new_cache = {key: torch.stack(v) for key, v in new.items()} \
-        if stateful else None
+            wkv = st_a["wkv"]
+            if split:
+                wkv = wkv.narrow(1, rank * heads, heads)
+            for key, t in (("wkv", wkv),
+                           ("shift_a", st_a["shift_a"]), ("shift_f", new_sf)):
+                _store(cache, key, i, t, promoted)
+    new_cache = _with_promoted(cache, promoted) if stateful else None
     x = rmsnorm(x, _take(params, plans, "ln_f")["scale"], cfg.norm_eps)
     return _logits(params, plans, x, cfg=cfg, policy=policy,
                    mesh=mesh), new_cache
@@ -495,8 +535,7 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
     # the mamba backbone; shared attention applied after every `every`
     # layers (the reference's scan segments, here a loop over layers)
     n_apps = max(1, cfg.n_layers // every)
-    new_h, new_conv = [], []
-    new_sk, new_sv = [], []
+    promoted: Dict[str, list] = {}
     layers = _unstack(params["layers"], cfg.n_layers)
     for app in range(n_apps):
         for i in range(app * every, min((app + 1) * every, cfg.n_layers)):
@@ -504,8 +543,8 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
             if c is not None or decode:
                 x, st = mamba_layer(x, lp, {"h": c["h"][i],
                                             "conv": c["conv"][i]})
-                new_h.append(st["h"])
-                new_conv.append(st["conv"])
+                _store(c, "h", i, st["h"], promoted)
+                _store(c, "conv", i, st["conv"], promoted)
             else:
                 x, _ = mamba_layer(x, lp, None)
         # shared attention block (same params every application, gathered
@@ -515,25 +554,14 @@ def _hybrid_forward(params, batch, *, cfg, policy, mesh, cache=None,
         app_cache = None
         if c is not None:
             app_cache = {"k": c["shared_k"][app], "v": c["shared_v"][app]}
-        a, new_app_cache = attention_block(
+        a, _ = attention_block(
             sp["attn"], hh, cfg=cfg, positions=positions, policy=policy,
             mesh=mesh, is_global=True, cache=app_cache,
             cache_index=cache_index, use_kernels=use_kernels)
         x = x + a
         h2 = apply_norm(cfg, sp["ln2"], x)
         x = x + mlp_block(sp["mlp"], h2, cfg=cfg, policy=policy, mesh=mesh)
-        if c is not None and new_app_cache is not None:
-            new_sk.append(new_app_cache["k"])
-            new_sv.append(new_app_cache["v"])
-    new_cache = None
-    if c is not None:
-        new_cache = {"h": torch.stack(new_h) if new_h else c["h"],
-                     "conv": torch.stack(new_conv) if new_conv
-                     else c["conv"],
-                     "shared_k": torch.stack(new_sk) if new_sk
-                     else c["shared_k"],
-                     "shared_v": torch.stack(new_sv) if new_sv
-                     else c["shared_v"]}
+    new_cache = None if c is None else _with_promoted(c, promoted)
     return _head(params, plans, x, cfg=cfg, policy=policy,
                  mesh=mesh), new_cache
 
@@ -627,7 +655,6 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
                  else torch.full((B, S), int(cache_index),
                                  dtype=torch.int32, device=dev))
     positions = positions.expand(B, S)
-    new_k, new_v = [], []
     dec_plans = _sub(plans, "dec")
     for i, lp in enumerate(_unstack(params["dec"], cfg.n_dec_layers)):
         if dec_plans is not None:
@@ -635,7 +662,7 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
         layer_cache = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i]}
         h = apply_norm(cfg, lp["ln1"], x)
-        a, new_cache_l = attention_block(
+        a, _ = attention_block(
             lp["attn"], h, cfg=cfg, positions=positions, policy=policy,
             mesh=mesh, is_global=True, cache=layer_cache,
             cache_index=cache_index, use_kernels=use_kernels)
@@ -645,15 +672,10 @@ def _encdec_forward(params, batch, *, cfg, policy, mesh, cache=None,
                                    policy=policy, mesh=mesh)
         h2 = apply_norm(cfg, lp["ln2"], x3)
         x = x3 + mlp_block(lp["mlp"], h2, cfg=cfg, policy=policy, mesh=mesh)
-        if cache is not None:
-            new_k.append(new_cache_l["k"])
-            new_v.append(new_cache_l["v"])
-    new_cache = None
     if cache is not None:
-        new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v),
-                     "enc_out": enc_out.to(cache["enc_out"].dtype)}
+        cache["enc_out"].copy_(enc_out)
     return _head(params, plans, x, cfg=cfg, policy=policy,
-                 mesh=mesh), new_cache
+                 mesh=mesh), cache
 
 
 # ===========================================================================
@@ -691,7 +713,6 @@ def nll_terms(params: Dict[str, Any], batch: Dict[str, Any], *,
         gold = torch.gather(lf, -1,
                             labels.clamp_min(0)[..., None]).squeeze(-1)
     else:
-        from ..parallel.sharding import all_gather_dim
         group, _, rank = model_part(mesh)
         with torch.no_grad():
             m = all_gather_dim(lf.amax(-1, keepdim=True), -1 % lf.dim(),

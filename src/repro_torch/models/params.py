@@ -147,17 +147,15 @@ def gather_params(tree: Any, pspecs: Any, mesh: Any) -> Any:
     into the full tree on every rank (a collective over the groups of the
     mesh axes that split a leaf; a leaf split over none is returned as it
     is)."""
-    import torch.distributed as dist
+    from ..parallel.sharding import all_gather_list
 
     def full(t: torch.Tensor, spec: Tuple[Any, ...]) -> torch.Tensor:
         for dim, entry in enumerate(spec):
             names = () if entry is None else \
                 (entry if isinstance(entry, tuple) else (entry,))
             for name in reversed(names):          # the minor axis first
-                group = mesh.get_group(name)
-                parts = [torch.empty_like(t) for _ in range(group.size())]
-                dist.all_gather(parts, t.contiguous(), group=group)
-                t = torch.cat(parts, dim)
+                t = torch.cat(all_gather_list(t, mesh.get_group(name)),
+                              dim)
         return t
 
     def walk(t: Any, s: Any) -> Any:

@@ -294,6 +294,34 @@ def model_part(mesh: Any) -> Tuple[Any, int, int]:
     return group, group.size(), dist.get_rank(group)
 
 
+#: a KV cache leaf's logical axes (``models.lm``; zamba2's shared block
+#: has None for `layers`, which maps to no mesh axis either way)
+KV_CACHE_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
+
+
+def seq_part(policy: MeshPolicy, mesh: Any) -> Tuple[Any, int, int]:
+    """``(group, size, index)`` of the mesh axis that a KV cache's
+    `kv_seq` maps to under ``policy`` (`data` under ``seq_shard``, where
+    the batch leaves it free); ``(None, 1, 0)`` without a mesh, where it
+    maps to none or the axis holds one rank.  Rank ``index`` of the group
+    holds the cache's rows ``[index * S_loc, (index + 1) * S_loc)``: the
+    caller stores the cache by :func:`storage_pspecs`, whose length must
+    then divide the axis (a length that does not stays whole there, and
+    this split would misread it)."""
+    if mesh is None:
+        return None, 1, 0
+    names = _names(logical_to_pspec(KV_CACHE_AXES, policy, mesh)[2])
+    if not names:
+        return None, 1, 0
+    if len(names) > 1:
+        raise NotImplementedError(f"kv_seq over {names}: one mesh axis")
+    group = mesh.get_group(names[0])
+    if group.size() == 1:
+        return None, 1, 0
+    import torch.distributed as dist
+    return group, group.size(), dist.get_rank(group)
+
+
 # ---------------------------------------------------------------------------
 # region collectives
 # ---------------------------------------------------------------------------
@@ -313,6 +341,17 @@ def all_gather_dim(t: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
     buf = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _all_gather_single()(buf, src, group=group)
     return buf.movedim(0, dim).contiguous() if dim else buf
+
+
+def all_gather_list(t: torch.Tensor, group: Any) -> list:
+    """Every rank's ``t`` of ``group``, in the group's rank order: one
+    ``all_gather`` into a list (no autograd; ``launch.dryrun.
+    StepRecorder(fill=True)`` writes this rank's tensor into each slot)."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(group.size())]
+    dist.all_gather(parts, t, group=group)
+    return parts
 
 
 def reduce_scatter_dim(t: torch.Tensor, dim: int, group: Any

@@ -80,8 +80,11 @@ class ServeEngine:
         return None
 
     def _decode_fn(self, params, tokens, cache, index):
+        # the cache is whole along the sequence: no kv_seq split
         logits, new_cache = forward(params, {"tokens": tokens},
-                                    cfg=self.cfg, policy=self.policy,
+                                    cfg=self.cfg,
+                                    policy=self.policy.with_rules(
+                                        kv_seq=None),
                                     mesh=self.mesh, cache=cache,
                                     cache_index=index, device=self.device)
         last = logits[:, -1]

@@ -7,6 +7,12 @@ PyTorch (its launcher jit-compiles them; here they run eagerly).
 ``prefill_step_fn`` — forward over a full prompt, filling the KV cache.
 ``decode_step_fn``  — one token against the cache.
 
+The serving steps consume the cache they are given, as the reference's
+launcher donates it (``donate_argnums=(2,)``): each layer's new rows and
+states are written into it (``forward(..., donate_cache=True)``) and the
+step returns that same storage.  A caller that needs the old cache
+afterwards clones it first.
+
 ``use_kernels`` is the reference's ``use_pallas``; ``device`` is where the
 parameters are (the card unless ``device="cpu"``), as ``forward`` takes
 it.  On a mesh each rank runs the step on its shards of the parameters
@@ -203,7 +209,8 @@ def prefill_step_fn(params: Any, batch: Dict[str, Any], cache: Any, *,
                     ) -> Tuple[torch.Tensor, Any]:
     logits, new_cache = forward(params, batch, cfg=cfg, policy=policy,
                                 mesh=mesh, cache=cache, cache_index=None,
-                                use_kernels=use_kernels, device=device)
+                                use_kernels=use_kernels, device=device,
+                                donate_cache=True)
     return logits[:, -1:], new_cache
 
 
@@ -212,10 +219,11 @@ def decode_step_fn(params: Any, batch: Dict[str, Any], cache: Any,
                    mesh: Any = None, use_kernels: bool = False,
                    device: Device = None) -> Tuple[torch.Tensor, Any]:
     """`serve_step`: one new token (batch["tokens"] is [B,1]) against a KV
-    cache of seq_len."""
+    cache of seq_len, written in place (the cache is donated)."""
     logits, new_cache = forward(params, batch, cfg=cfg, policy=policy,
                                 mesh=mesh, cache=cache, cache_index=index,
-                                use_kernels=use_kernels, device=device)
+                                use_kernels=use_kernels, device=device,
+                                donate_cache=True)
     return logits, new_cache
 
 

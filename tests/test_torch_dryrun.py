@@ -31,8 +31,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import ARCHS, SHAPES, cells, get_config, \
-    get_smoke_config
+from repro_torch.configs import ARCHS, LONG_CONTEXT_OK, SHAPES, cells, \
+    get_config, get_smoke_config
 from repro_torch.launch import dryrun, perf
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -182,10 +182,10 @@ def test_collectives_of_the_traced_train_step():
 def test_rank_arguments_are_the_reference_layout(arch):
     """``rank_inputs``' arguments, as the port stores them, hold the
     bytes of the reference's layout (``reference_layout`` with every
-    argument read) in every cell of ``configs.cells()`` at full width:
-    decode's index is a Python int here (4 bytes there), and the long_500k
-    caches, which the reference splits along the sequence over `data`
-    (``seq_shard``), are whole here."""
+    argument read) in every cell of ``configs.cells()`` at full width,
+    the long_500k caches split along the sequence over `data` as the
+    reference's ``seq_shard`` splits them; decode's index is a Python int
+    here (4 bytes there)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     n = 0
     with dryrun.fake_world(256):
@@ -200,14 +200,51 @@ def test_rank_arguments_are_the_reference_layout(arch):
                 got = dryrun.StepRecorder().hold(args)
             ref = dryrun.reference_layout(cfg, shape, mesh, policy)
             index = 4 if SHAPES[shape]["kind"] == "decode" else 0
-            if policy.seq_shard:
-                whole = dryrun.reference_layout(
-                    cfg, shape, mesh, policy.with_rules(kv_seq=None))
-                assert whole["argument"] >= ref["argument"]
-                ref = whole
             assert got + index == ref["argument"], shape
             n += 1
     assert n >= 3
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", sorted(LONG_CONTEXT_OK))
+def test_long_500k_caches_hold_a_sixteenth_of_the_sequence(arch,
+                                                           multi_pod):
+    """Each long_500k rank's KV cache leaves hold 32,768 of the 524,288
+    rows: ``storage_pspecs`` puts `kv_seq` over `data` (16 ranks) and
+    nothing else, on the 16x16 and the 2x16x16 mesh (there the cache is
+    replicated over `pod`); rwkv6's recurrent states carry no `kv_seq`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.inputs import cache_abstract
+    from repro_torch.parallel.sharding import mesh_shape, storage_pspec
+    cfg = get_config(arch)
+    S = SHAPES["long_500k"]["seq"]
+    with dryrun.fake_world(512 if multi_pod else 256):
+        mesh = dryrun.make_production_mesh(multi_pod=multi_pod,
+                                           device_type="cpu")
+        sizes = mesh_shape(mesh)
+        policy = dryrun.cell_policy(cfg, "long_500k",
+                                    model_axis=sizes["model"],
+                                    data_axis=sizes["data"],
+                                    n_pods=sizes.get("pod", 1))
+        assert policy.seq_shard
+        with FakeTensorMode():
+            args = dryrun.rank_inputs(cfg, "long_500k", mesh, policy)
+        c_abs, c_axes = cache_abstract(cfg, "long_500k")
+        split = []
+        for key, t in args["cache"].items():
+            axes = c_axes[key]
+            if "kv_seq" not in axes:
+                continue
+            dim = axes.index("kv_seq")
+            spec = storage_pspec(tuple(c_abs[key].shape), axes, policy,
+                                 mesh)
+            assert spec[dim] == "data", (key, spec)
+            assert "pod" not in str(spec), (key, spec)
+            assert t.shape[dim] == S // 16 == 32768, (key, t.shape)
+            split.append(key)
+    assert sorted(split) == {"rwkv6_3b": [], "zamba2_2_7b": [
+        "shared_k", "shared_v"]}.get(arch, ["k", "v"])
 
 
 def test_period_and_derive_depth_match_the_reference(reference):
