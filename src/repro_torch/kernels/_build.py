@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("metadata_kernels.cu", "model_kernels.cu", "flash_tc.cu",
-           "gmm_tc.cu", "ssd_scan.cu", "wkv_scan.cu")
+           "gmm_tc.cu", "ssd_scan.cu", "wkv_scan.cu", "span_marks.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",

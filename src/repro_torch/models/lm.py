@@ -45,6 +45,7 @@ from ..parallel.sharding import (KV_CACHE_AXES, Gather, MeshPolicy, _names,
                                  gather_tree, mesh_shape, model_part,
                                  reduce_over, regather_saved,
                                  shard_constraint, storage_pspecs)
+from ..spans import span
 from .config import ModelConfig
 from .layers import (_sdpa, _tp_heads, apply_norm, apply_rope,
                      attention_block, attn_specs, embed, embed_specs,
@@ -331,8 +332,9 @@ def _logits(params, plans, x, *, cfg, policy, mesh):
     """The LM head on the normed ``x``: the untied ``head`` or the tied
     table, gathered alone."""
     head = ("tok",) if cfg.tie_embeddings else ("head",)
-    return lm_head(_take(params, plans, "embed", head), x, policy=policy,
-                   mesh=mesh, vocab_size=cfg.vocab_size)
+    with span("lm.head", x):
+        return lm_head(_take(params, plans, "embed", head), x,
+                       policy=policy, mesh=mesh, vocab_size=cfg.vocab_size)
 
 
 def _head(params, plans, x, *, cfg, policy, mesh):
@@ -410,18 +412,19 @@ def forward(params: Dict[str, Any], batch: Dict[str, Any], *,
     where = params["embed"]["tok"].device
     if where.type != dev.type:
         raise ValueError(f"forward on {dev}: the parameters are on {where}")
-    batch = {k: v.to(where) if torch.is_tensor(v)
-             else torch.tensor(np.asarray(v), device=where)
-             for k, v in batch.items()}
-    fwd = {"ssm": _rwkv_forward, "hybrid": _hybrid_forward,
-           "encdec": _encdec_forward}.get(cfg.family, _decoder_forward)
-    if cache is not None and not donate_cache:
-        cache = tree_map(torch.clone, cache)
-    plans = use_plans(cfg, policy, mesh)
-    with regather_saved(plans is not None):
-        return fwd(params, batch, cfg=cfg, policy=policy, mesh=mesh,
-                   cache=cache, cache_index=cache_index,
-                   use_kernels=use_kernels, plans=plans)
+    with span("lm.forward", where):
+        batch = {k: v.to(where) if torch.is_tensor(v)
+                 else torch.tensor(np.asarray(v), device=where)
+                 for k, v in batch.items()}
+        fwd = {"ssm": _rwkv_forward, "hybrid": _hybrid_forward,
+               "encdec": _encdec_forward}.get(cfg.family, _decoder_forward)
+        if cache is not None and not donate_cache:
+            cache = tree_map(torch.clone, cache)
+        plans = use_plans(cfg, policy, mesh)
+        with regather_saved(plans is not None):
+            return fwd(params, batch, cfg=cfg, policy=policy, mesh=mesh,
+                       cache=cache, cache_index=cache_index,
+                       use_kernels=use_kernels, plans=plans)
 
 
 # ===========================================================================

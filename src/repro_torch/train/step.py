@@ -52,6 +52,7 @@ from ..models.params import tree_leaves, tree_map
 from ..parallel.sharding import (MeshPolicy, _names, grad_wire,
                                  logical_to_pspec, mesh_shape,
                                  storage_pspecs)
+from ..spans import span
 from .optimizer import OptConfig, _paired, adamw_update
 
 Device = Union[str, torch.device, None]
@@ -131,6 +132,14 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
     by their count, as the reference's ``lax.scan`` accumulates them.  On
     a mesh that splits the batch, ``batch`` is this rank's rows and its
     microbatches are cut from them (module docstring)."""
+    with span("train.step", params["embed"]["tok"]):
+        return _train_step(params, opt_state, batch, cfg=cfg, policy=policy,
+                           mesh=mesh, opt=opt, microbatches=microbatches,
+                           use_kernels=use_kernels, device=device)
+
+
+def _train_step(params, opt_state, batch, *, cfg, policy, mesh, opt,
+                microbatches, use_kernels, device):
     # leaves that require grad and share the parameters' storage
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     diff = _unflatten_like(params, leaves)
@@ -158,13 +167,16 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
     wire = torch.bfloat16 if cfg.grad_compress and m == 1 else None
     for j, b in enumerate(parts):
         with grad_wire(wire):
-            total, _ = nll_terms(diff, b, cfg=cfg, policy=policy, mesh=mesh,
-                                 use_kernels=use_kernels, device=device)
-            part = total / counts[where[j]]
+            with span("train.forward", dev):
+                total, _ = nll_terms(diff, b, cfg=cfg, policy=policy,
+                                     mesh=mesh, use_kernels=use_kernels,
+                                     device=device)
+                part = total / counts[where[j]]
             # a parameter the loss does not use (command-r's ln2) gets
             # zeros, as under jax.grad
-            g = torch.autograd.grad(part, leaves, allow_unused=True,
-                                    materialize_grads=True)
+            with span("train.backward", dev):
+                g = torch.autograd.grad(part, leaves, allow_unused=True,
+                                        materialize_grads=True)
         if m == 1:
             grads = list(g)
         elif grads is None:
@@ -190,8 +202,9 @@ def train_step_fn(params: Any, opt_state: Any, batch: Dict[str, Any], *,
         for g, spec in _paired(grads, specs):
             done = _split_axes(spec, sizes)
             _sum_over([mesh.get_group(a) for a in axes if a not in done], g)
-    adamw_update(opt, params, grads, opt_state,
-                 gnorm=_mesh_gnorm(cfg, policy, mesh, grads))
+    with span("train.optimizer", dev):
+        adamw_update(opt, params, grads, opt_state,
+                     gnorm=_mesh_gnorm(cfg, policy, mesh, grads))
     return params, opt_state, loss
 
 
